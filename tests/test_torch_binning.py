@@ -1,0 +1,103 @@
+"""The port's tile binning (tyleri_tpu_torch.ops.binning) against the JAX
+package's on one fixed setup table fed to both.
+
+Both sorts are unstable, so entries with equal keys may come out in a
+different order: per tile, the MULTISET of entries (by draw order,
+CH_ORDER) must be equal, not the row order.  Everything else is integer
+bookkeeping and must be equal exactly: tile_start, the overflow and demand
+counters, and the broad list.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tyleri_tpu.ops import binning as jbinning
+from tyleri_tpu.ops import setup as jsetup
+from tyleri_tpu_torch.ops import binning as tbinning
+from tyleri_tpu_torch.ops import setup as tsetup
+
+FB_W, FB_H, TILE = 192, 128, 8
+GRID_W, GRID_H = FB_W // TILE, FB_H // TILE
+
+
+def setup_table(seed=5, T=1500):
+    """A setup table with small, tile-spanning and screen-sized triangles
+    (dense, spill and broad entries) and some invalid rows."""
+    rng = np.random.default_rng(seed)
+    center = rng.uniform(-1.2, 1.2, (T, 1, 2))
+    size = rng.choice([0.02, 0.1, 0.4, 2.5], size=(T, 1, 1),
+                      p=[0.6, 0.3, 0.09, 0.01])
+    xy = center + size * rng.uniform(-1, 1, (T, 3, 2))
+    clip = np.ones((T, 3, 4), np.float32)
+    clip[..., :2] = xy
+    clip[..., 2] = rng.uniform(0.05, 0.95, (T, 1))
+    uv = rng.random((T, 3, 2)).astype(np.float32)
+    tex = rng.integers(0, 3, T).astype(np.int32)
+    valid = rng.random(T) > 0.1
+    su = jsetup.setup_triangles(
+        jnp.asarray(clip), jnp.asarray(uv), jnp.asarray(tex),
+        jnp.asarray(valid),
+        jnp.asarray([0, 0, FB_W, FB_H, 0, 1], jnp.float32),
+        jnp.asarray([0, 0, FB_W, FB_H], jnp.int32),
+        tile_w=TILE, tile_h=TILE, grid_w=GRID_W, grid_h=GRID_H)
+    return su
+
+
+def to_torch(su):
+    return tsetup.TriangleSetup(
+        *(torch.from_numpy(np.array(getattr(su, f)))
+          for f in ("valid", "channels", "tile_lo", "tile_hi")))
+
+
+CAPS = {
+    # every entry placed: no overflow
+    "roomy": dict(entry_cap=1 << 15, broad_cap=128, spill_cap=1 << 14),
+    # valid_cap, the learned spill-level fit and the broad list all cut
+    "tight": dict(entry_cap=1 << 12, broad_cap=4, spill_cap=1 << 12,
+                  valid_cap=512, spill_level_caps=(512, 512, 512, 512)),
+}
+
+
+@pytest.mark.parametrize("caps", sorted(CAPS))
+def test_bin_triangles_matches_jax(caps):
+    kw = dict(grid_w=GRID_W, grid_h=GRID_H, max_tiles_per_tri=16, **CAPS[caps])
+    su = setup_table()
+    want = jbinning.bin_triangles(su, **kw)
+    got = tbinning.bin_triangles(to_torch(su), **kw)
+
+    for name in ("overflow", "num_entries", "dense_demand", "level_demand",
+                 "num_broad", "tile_start", "broad_tiles"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), name)
+    if caps == "roomy":
+        assert int(got.overflow) == 0 and int(got.num_broad) > 0
+    else:
+        assert int(got.overflow) > 0
+
+    ts = got.tile_start.numpy()
+    g_ch = got.entry_channels.numpy()
+    w_ch = np.asarray(want.entry_channels)
+    for tile in range(GRID_W * GRID_H):
+        seg = slice(ts[tile], ts[tile + 1])
+        np.testing.assert_array_equal(
+            np.sort(g_ch[seg, tsetup.CH_ORDER]),
+            np.sort(w_ch[seg, tsetup.CH_ORDER]), f"tile {tile}")
+        # front to back within the tile: what the early exit relies on
+        assert (np.diff(g_ch[seg, tsetup.CH_ZMIN]) >= 0).all()
+    np.testing.assert_array_equal(
+        got.entry_tile.numpy()[:ts[-1]], np.asarray(want.entry_tile)[:ts[-1]])
+    nb = int(got.num_broad)
+    np.testing.assert_array_equal(got.broad_channels.numpy()[:nb],
+                                  np.asarray(want.broad_channels)[:nb])
+
+
+def test_spill_rows_matches_jax():
+    for spill_cap in (1 << 12, 1 << 16, 3 << 15):
+        for K in (4, 16, 32):
+            assert tbinning.spill_rows(spill_cap, K) == \
+                jbinning.spill_rows(spill_cap, K)
+    fit = (1024, 512, 512, 512, 512)
+    assert tbinning.spill_rows(1 << 16, 32, fit) == \
+        jbinning.spill_rows(1 << 16, 32, fit)

@@ -1,0 +1,149 @@
+"""Profile the port's steady frame on one CUDA card: host time per stage,
+device kernel time per frame, the largest kernels and the eager op count.
+
+    python3 -m tyleri_tpu_torch.testing.profile_frame [--frames N]
+
+Config 5 (sponza, 1.05M triangles) at 1920x1080 by default.  The camera
+orbits across the near plane and then stands still until the capacity plan
+has converged (as in chip_smoke.py); then N frames run unprofiled (CUDA
+events on the frame stream, host timers around each stage) and N more
+under torch.profiler (device time of every kernel and copy).  The report's
+first line is the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import contextlib
+import functools
+import subprocess
+import sys
+import time
+
+import torch
+
+from tyleri_tpu_torch.rendering import forward, passes
+from tyleri_tpu_torch.window import render_window
+
+# (owner, attribute) of each stage, as the frame loop looks it up
+STAGES = (
+    (forward.ForwardRenderingFunction, "build_frame_inputs"),
+    (passes, "fused_setup"),
+    (passes, "_fused_clip_subset"),
+    (passes, "bin_triangles"),
+    (passes, "rasterize_visibility"),
+    (passes, "shade_visibility"),
+    (render_window, "quantize_unorm8"),
+    (render_window, "_to_host"),
+)
+
+
+@contextlib.contextmanager
+def stage_timers():
+    """Wrap every stage in a host timer and a ``record_function`` range
+    while the block runs; yields {stage name: host seconds}."""
+    host = collections.defaultdict(float)
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            with torch.profiler.record_function("stage::" + name):
+                out = fn(*args, **kwargs)
+            host[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    saved = [(owner, name, getattr(owner, name)) for owner, name in STAGES]
+    try:
+        for owner, name, fn in saved:
+            setattr(owner, name, timed(name, fn))
+        yield host
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def render(win, rig, times):
+    for t in times:
+        rig.fill(win.get_render_scene(), t)
+        win.render()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=30)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--grid-n", type=int, default=420,
+                    help="sponza heightfield size (420: 1.05M triangles)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_frame: no CUDA device", file=sys.stderr)
+        return 2
+    import tyleri_tpu_torch as tt
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    print(card.strip().splitlines()[0])
+    res, n = (args.width, args.height), args.frames
+    messages = []   # overflows while the plan converges are expected
+    dev = tt.RenderDeviceBuilder().validation_level(
+        tt.ValidationLevel.ERROR).debug_callback(messages.append).build()
+    rig = tt.scenes.config5_sponza(dev, res, grid_n=args.grid_n)
+    win = tt.RenderWindow(dev, resolution=res, present_mode="immediate")
+    render(win, rig, [0.25 * k for k in range(1, 25)] + [0.0] * 40)
+    win.flush()
+    converged = len(messages)
+
+    stream = dev.queue.stream
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with stage_timers() as host:
+        start.record(stream)
+        t0 = time.perf_counter()
+        render(win, rig, [0.0] * n)
+        end.record(stream)
+        win.flush()
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+    end.synchronize()
+    frame_ms = start.elapsed_time(end) / n
+    print(f"{rig.triangle_count} triangles at {res[0]}x{res[1]}, {n} frames")
+    print(f"unprofiled: {frame_ms:.3f} ms/frame by CUDA events, "
+          f"{host_ms:.3f} ms/frame by host clock")
+    for name, s in sorted(host.items(), key=lambda kv: -kv[1]):
+        print(f"  host {name:24s} {s * 1e3 / n:8.3f} ms/frame")
+    print(f"  host {'all stages':24s} {sum(host.values()) * 1e3 / n:8.3f} "
+          "ms/frame")
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        render(win, rig, [0.0] * n)
+        win.flush()
+    rows = prof.key_averages()
+    device = sorted(
+        ((r.self_device_time_total, r.count, r.key) for r in rows
+         if r.device_type == torch.autograd.DeviceType.CUDA
+         and not r.key.startswith("stage::")), reverse=True)
+    busy_ms = sum(us for us, _, _ in device) / 1e3 / n
+    aten = sum(r.count for r in rows if r.key.startswith("aten::")) / n
+    print(f"profiled: device kernels and copies {busy_ms:.3f} ms/frame "
+          f"({busy_ms / frame_ms:.1%} of the unprofiled frame); "
+          f"{sum(c for _, c, _ in device) / n:.0f} kernels and copies, "
+          f"{aten:.0f} aten ops per frame")
+    for us, count, key in device[:15]:
+        print(f"  {us / 1e3 / n:8.4f} ms  {count / n:6.1f}/frame  {key[:90]}")
+    overflow = [m for m in messages[converged:]
+                if m.message_id == "capacity-overflow"]
+    if overflow:
+        print(f"profile_frame: the profiled frames overflowed: {overflow[0]}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
