@@ -101,3 +101,29 @@ def test_spill_rows_matches_jax():
     fit = (1024, 512, 512, 512, 512)
     assert tbinning.spill_rows(1 << 16, 32, fit) == \
         jbinning.spill_rows(1 << 16, 32, fit)
+
+
+def test_bin_triangles_gathers_extra_rows_like_jax():
+    """Extra per-triangle rows (the lit path's normal/w planes) ride the
+    same permutations as the entry and broad rows: every live entry's extra
+    row is its triangle's, in both packages."""
+    su = setup_table(seed=11)
+    T = su.valid.shape[0]
+    extra = np.random.default_rng(12).random((T, 12)).astype(np.float32)
+    caps = CAPS["roomy"]
+    want = jbinning.bin_triangles(su, jnp.asarray(extra), grid_w=GRID_W,
+                                  grid_h=GRID_H, **caps)
+    got = tbinning.bin_triangles(to_torch(su), torch.from_numpy(extra),
+                                 grid_w=GRID_W, grid_h=GRID_H, **caps)
+    for b in (got, want):
+        n = int(np.asarray(b.tile_start)[-1])
+        nb = int(b.num_broad)
+        for rows, ch, cap in ((np.asarray(b.entry_extra),
+                               np.asarray(b.entry_channels), n),
+                              (np.asarray(b.broad_extra),
+                               np.asarray(b.broad_channels), nb)):
+            tri = ch[:cap, tsetup.CH_ORDER].astype(np.int64)
+            assert cap > 0
+            np.testing.assert_array_equal(rows[:cap], extra[tri])
+    assert got.entry_extra.shape == (caps["entry_cap"], 12)
+    assert got.broad_extra.shape == (caps["broad_cap"], 12)

@@ -5,8 +5,8 @@ Both packages render from the same bytes: the scene is uploaded once
 through the JAX package's API and copied into the port's device
 (tyleri_tpu_torch.interop), and the port starts from the JAX plan.  On the
 CPU the JAX package takes its XLA path (setup, near clip, binning, the XLA
-visibility resolve); the port takes its only path, with the kernels' plain
-versions.
+visibility resolve) unless a test forces its Pallas kernel in interpret
+mode; the port takes its own path, with the kernels' plain versions.
 
 Budgets (tests/test_raster_golden.py:108): at most 0.5 % of pixels may
 differ, where a pixel differs if any u8 channel does (the golden tolerance
@@ -15,10 +15,17 @@ fused multiply-adds and PyTorch does not, so an edge or a depth tie can
 fall the other way on a few pixels.  Config 1 (one triangle) must match the
 JAX frame on every pixel.
 
-The oracle reference blends the surviving fragment once per pixel, as the
-visibility path does (tyleri_tpu_torch/testing/scene_oracle.py); the JAX
-package's own blend-order deviation from per-fragment blending is not the
-port's to fix here.
+Two blend policies, two oracle references
+(tyleri_tpu_torch/testing/scene_oracle.py):
+
+* the JAX package's XLA path blends the surviving fragment once per pixel,
+  so ``test_frame_matches_jax_and_oracle`` pins the port to "fast" (the
+  single layer) and holds both to the oracle's single-survivor mode;
+* the default "auto" policy engages peel2 on these scene sizes, as the JAX
+  package does on its kernel path: ``test_peel2_frame_matches_jax_and_
+  sequential_oracle`` forces the JAX plan onto the Pallas kernel (interpret
+  mode) and holds both to the sequential oracle, which blends every
+  fragment in draw order as the reference does.
 """
 
 import dataclasses
@@ -51,8 +58,11 @@ CONFIGS = {
 }
 
 
-def twin_windows(make, res, callback=None):
-    """A JAX window and a port window over the same uploaded scene."""
+def twin_windows(make, res, callback=None, blend_parity="auto",
+                 jax_pallas=False):
+    """A JAX window and a port window over the same uploaded scene; with
+    ``jax_pallas`` the JAX plan is forced onto its Pallas kernel (interpret
+    mode), as tests/test_blend_parity.py:22-26 does."""
     jdev = ty.RenderDeviceBuilder().validation_level(
         ty.ValidationLevel.ERROR).build()
     rig = make(jdev, res)
@@ -60,7 +70,12 @@ def twin_windows(make, res, callback=None):
         tt.ValidationLevel.WARNING).debug_callback(callback).build()
     load_render_device(tdev, jdev)
     jwin = JaxWindow(jdev, resolution=res, present_mode="immediate")
-    twin = tt.RenderWindow(tdev, resolution=res, present_mode="immediate")
+    if jax_pallas:
+        jrf = jwin.rendering_function
+        jrf.plan = dataclasses.replace(jrf.plan, raster=dataclasses.replace(
+            jrf.plan.raster, pallas=True, tile_w=128, tile_h=8, chunk=128))
+    twin = tt.RenderWindow(tdev, resolution=res, present_mode="immediate",
+                           blend_parity=blend_parity)
     trf = twin.rendering_function
     trf.plan = dataclasses.replace(
         trf.plan, raster=raster_plan_from_jax(jwin.rendering_function.plan.raster))
@@ -77,7 +92,8 @@ def one_frame(win, rig, t):
 def test_frame_matches_jax_and_oracle(name):
     make, res, t = CONFIGS[name]
     messages = []
-    rig, jwin, twin = twin_windows(make, res, messages.append)
+    rig, jwin, twin = twin_windows(make, res, messages.append,
+                                   blend_parity="fast")
     reports = []
     note = twin.rendering_function.note_overflow
     twin.rendering_function.note_overflow = (
@@ -107,6 +123,52 @@ def test_frame_matches_jax_and_oracle(name):
     # the two packages grew their plans alike
     assert raster_plan_from_jax(jwin.rendering_function.plan.raster) == \
         twin.rendering_function.plan.raster
+
+
+def config4_small(device, res):
+    return scenes.config4_instances(device, res, n_instances=12)
+
+
+PEEL2_CONFIGS = {
+    # lit: the clip-space mesh pass with world normals; the lit golden
+    # tolerance of 6e-3 (tests/test_raster_golden.py:446-449) is more than
+    # 1 u8 off
+    "config3": (scenes.config3_suzanne, (96, 96), 0.3, 1),
+    # 12 instances, with overlap: the two-layer blend deviates from the
+    # sequential blend only where a pixel has three or more survivors
+    "config4": (config4_small, (128, 72), 0.5, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PEEL2_CONFIGS))
+def test_peel2_frame_matches_jax_and_sequential_oracle(name):
+    """The "auto" policy engages peel2 in both packages; the frames agree
+    within the golden budget, and against the sequential oracle at most
+    0.5 % of pixels are more than 1 u8 off, fewer than with the single
+    layer."""
+    make, res, t, tol = PEEL2_CONFIGS[name]
+    rig, jwin, twin = twin_windows(make, res, jax_pallas=True)
+    want = one_frame(jwin, rig, t)
+    got = one_frame(twin, rig, t)
+    trf, jrf = twin.rendering_function, jwin.rendering_function
+    assert trf.plan.raster.peel2 and jrf.plan.raster.peel2
+    assert trf.plan.lit == jrf.plan.lit == (name == "config3")
+    assert got.shape == want.shape and (got[..., :3] > 0).any()
+    differ = mismatch_fraction(got, want)
+    print(f"{name}: {differ:.4%} px differ from the JAX frame")
+    assert differ <= BUDGET
+
+    scene = RenderScene()
+    rig.fill(scene, t)
+    oracle = scene_oracle_u8(twin.render_device, scene.render_resources,
+                             trf.mesh_state, res, sequential=True)
+    bad = mismatch_fraction(got, oracle, tol)
+    fast = tt.RenderWindow(twin.render_device, resolution=res,
+                           present_mode="immediate", blend_parity="fast")
+    bad_fast = mismatch_fraction(one_frame(fast, rig, t), oracle, tol)
+    print(f"{name}: {bad:.4%} px more than {tol} u8 off the sequential "
+          f"oracle with peel2, {bad_fast:.4%} with the single layer")
+    assert bad <= BUDGET and bad < bad_fast
 
 
 def test_reduced_sponza_converges_through_the_fit_stages():

@@ -17,7 +17,11 @@ from tyleri_tpu.pipeline.state import CompareOp, DepthFormat, DepthState
 from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
 from tyleri_tpu_torch.ops import setup as S
 from tyleri_tpu_torch.ops.binning import BinnedEntries, bin_triangles
-from tyleri_tpu_torch.ops.visibility import rasterize_visibility_reference
+from tyleri_tpu_torch.ops.visibility import (
+    rasterize_visibility_reference,
+    rasterize_visibility_stream_reference,
+)
+from tyleri_tpu_torch.testing.overdraw import overdraw_table
 
 pytestmark = pytest.mark.cuda
 
@@ -101,6 +105,13 @@ def binned_scene(device, rng, W, H, tile, T=3000):
                    grid_w=gw, grid_h=gh)
 
 
+def assert_layers_equal(got, want):
+    """Every map bit for bit, owner ids included (one table for both)."""
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f
+
+
 @pytest.mark.parametrize("case", ["le", "less", "le_scissor_prior",
                                   "less_d32", "tile8_chunk7"])
 def test_visibility_equal_to_plain(cuda_device, case):
@@ -121,17 +132,72 @@ def test_visibility_equal_to_plain(cuda_device, case):
                 np.float32)).to(cuda_device)
     ds = DepthState(test_enable=True, write_enable=True, compare_op=op,
                     format=fmt)
-    before = raster_cuda.launches
+    before = raster_cuda.launches()
     got = raster_cuda.rasterize_visibility(b, depth0, scissor, chunk=chunk,
                                            depth_state=ds, **dims)
-    want = rasterize_visibility_reference(b, depth0, scissor,
-                                          depth_state=ds, **dims)
+    want = rasterize_visibility_stream_reference(
+        b, depth0, scissor, depth_state=ds, chunk=chunk, **dims)
+    exact = rasterize_visibility_reference(b, depth0, scissor,
+                                           depth_state=ds, **dims)
     torch.cuda.synchronize()
-    assert raster_cuda.launches == before + 1
-    assert torch.equal(got.owner >= 0, want.owner >= 0)
+    assert raster_cuda.launches() == before + 1
+    assert_layers_equal(got, want)
     assert (got.owner >= 0).float().mean() > 0.5
+    # the no-exit resolve agrees on this table (no near-degenerate plane
+    # dips below its z bound here)
     for f in ("depth", "order", "uw", "vw", "iw", "tex"):
-        assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert torch.equal(getattr(got, f), getattr(exact, f)), f
+
+
+@pytest.mark.parametrize("case", ["le_d16", "less_d16", "le_d32",
+                                  "less_d32"])
+def test_visibility_peel2_equal_to_stream_plain(cuda_device, case):
+    op = CompareOp.LESS if case.startswith("less") else \
+        CompareOp.LESS_OR_EQUAL
+    fmt = DepthFormat.D32_SFLOAT if case.endswith("d32") else \
+        DepthFormat.D16_UNORM
+    rng = np.random.default_rng(61)
+    W, H = 300, 170
+    b, dims = overdraw_table(cuda_device, rng, W, H)
+    assert int(b.overflow) == 0 and int(b.num_broad) > 0
+    ds = DepthState(test_enable=True, write_enable=True, compare_op=op,
+                    format=fmt)
+    depth0 = torch.ones((H, W), device=cuda_device)
+    before = raster_cuda.variant_launches["peel2"]
+    got = raster_cuda.rasterize_visibility(b, depth0, (0, 0, W, H), chunk=16,
+                                           depth_state=ds, peel2=True, **dims)
+    want = rasterize_visibility_stream_reference(
+        b, depth0, (0, 0, W, H), depth_state=ds, peel2=True, **dims)
+    torch.cuda.synchronize()
+    assert raster_cuda.variant_launches["peel2"] == before + 1
+    for g, w in zip(got, want):
+        assert_layers_equal(g, w)
+    # both layers are populated, and some layer-2 slots are record gates
+    assert (got[1].owner >= 0).float().mean() > 0.3
+    assert ((got[1].owner < 0) & (got[1].order >= 0)).any()
+
+
+@pytest.mark.parametrize("chunk", [64, 7])
+def test_visibility_counts_equal_to_stream_plain(cuda_device, chunk):
+    rng = np.random.default_rng(67)
+    W, H = 300, 170
+    b, dims = overdraw_table(cuda_device, rng, W, H)
+    ds = DepthState(test_enable=True, write_enable=True,
+                    compare_op=CompareOp.LESS_OR_EQUAL)
+    depth0 = torch.ones((H, W), device=cuda_device)
+    before = raster_cuda.variant_launches["counts"]
+    vis, nvis = raster_cuda.rasterize_visibility(
+        b, depth0, (0, 0, W, H), chunk=chunk, depth_state=ds, counts=True,
+        **dims)
+    want, want_nvis = rasterize_visibility_stream_reference(
+        b, depth0, (0, 0, W, H), depth_state=ds, counts=True, chunk=chunk,
+        **dims)
+    torch.cuda.synchronize()
+    assert raster_cuda.variant_launches["counts"] == before + 1
+    assert_layers_equal(vis, want)
+    assert torch.equal(nvis, want_nvis)
+    # the early exit skipped part of the table, and not all of it
+    assert 0 < int(nvis.sum()) < int(b.num_entries)
 
 
 def test_wrappers_reject_bad_input(cuda_device):
@@ -144,6 +210,11 @@ def test_wrappers_reject_bad_input(cuda_device):
             b, torch.ones((8, 8), device=cuda_device), (0, 0, 8, 8),
             fb_w=8, fb_h=8, tile_w=8, tile_h=8, grid_w=1, grid_h=1,
             depth_state=ds)
+    with pytest.raises(ValueError):   # as raster_pallas.py:567-568
+        raster_cuda.rasterize_visibility(
+            b, torch.ones((8, 8), device=cuda_device), (0, 0, 8, 8),
+            fb_w=8, fb_h=8, tile_w=8, tile_h=8, grid_w=1, grid_h=1,
+            depth_state=ds, peel2=True, counts=True)
     corners = torch.zeros((4, 3, 5), device=cuda_device)
     with pytest.raises(ValueError):   # tri_draw must be int32
         setup_cuda.fused_setup(

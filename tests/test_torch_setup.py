@@ -252,3 +252,36 @@ def test_fused_clip_subset_splice_matches_jax():
     np.testing.assert_array_equal(got.channels.numpy()[live, tsetup.CH_ORDER],
                                   np.asarray(want.channels)[live,
                                                             tsetup.CH_ORDER])
+
+
+def test_setup_lam_matches_jax():
+    """The barycentric planes lam[t, i] = (A, B, C) of lambda_i, which the
+    lit path interpolates normals with, held like the channel planes: each
+    plane's error over the domain within RTOL of its magnitude on 99.5 %
+    of the rows both sides keep, and within 1e-3 on all of them."""
+    rng = np.random.default_rng(9)
+    corner, draw, tex, valid, mvps = rand_scene(rng, 700, 5)
+    h = np.concatenate([corner[..., :3], np.ones((700, 3, 1), np.float32)],
+                       axis=-1)
+    clip = np.einsum("tij,tcj->tci", mvps[draw], h).astype(np.float32)
+    uv = corner[..., 3:5]
+    want = jsetup.setup_triangles(
+        jnp.asarray(clip), jnp.asarray(uv), jnp.asarray(tex),
+        jnp.asarray(valid), jnp.asarray(VIEWPORT), jnp.asarray(SCISSOR),
+        **DIMS)
+    got = tsetup.setup_triangles(t(clip), t(uv), t(tex), t(valid), VIEWPORT,
+                                 SCISSOR, **DIMS)
+    live = np_of(got.valid) & np_of(want.valid)
+    g = np_of(got.lam).astype(np.float64)[live]      # [N, 3, 3]
+    w = np_of(want.lam).astype(np.float64)[live]
+    W, H = FB_W + 128.0, FB_H + 128.0
+    err = (np.abs(g - w) * [W, H, 1.0]).sum(-1).max(-1)
+    mag = (np.abs(w) * [W, H, 1.0]).sum(-1).max(-1)
+    rel = err / np.maximum(mag, 1e-30)
+    assert live.sum() > 300
+    assert (rel <= RTOL).mean() >= 1 - MAX_ROW_MISMATCH and rel.max() <= 1e-3
+    # the fused path has no attributes to interpolate
+    su, _, _ = setup_cuda.fused_setup_reference(
+        t(corner), t(draw), t(tex), t(valid), t(mvps.reshape(5, 16)), True,
+        VIEWPORT, SCISSOR, **DIMS)
+    assert su.lam is None

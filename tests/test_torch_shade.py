@@ -151,3 +151,104 @@ def test_quantize_depth_equals_jax(fmt):
     np.testing.assert_array_equal(
         tdepth.quantize_depth(torch.from_numpy(z), fmt).numpy(),
         np.asarray(jdepth.quantize_depth(jnp.asarray(z), fmt)))
+
+
+LIT_TOL = 2e-5   # f32 sums of three products and a pow(x, 32): ~100 ulp
+
+
+def lit_inputs(rng, H=24, W=40):
+    """A lit pixel set: normals (some zero), world positions, the
+    DirectionalLight row, an eye, a perspective view-projection."""
+    from tyleri_tpu.scene.light import DirectionalLight
+    from tyleri_tpu.utils import math3d
+
+    n = rng.normal(size=(H, W, 3)).astype(np.float32)
+    n[0, :4] = 0.0
+    p = rng.uniform(-2, 2, (H, W, 3)).astype(np.float32)
+    light = DirectionalLight(direction=(0.3, -1.0, -0.5)).as_array()
+    eye = np.asarray([0.5, 1.0, 3.0], np.float32)
+    vp = (np.asarray(math3d.perspective_rh(np.radians(50.0), W / H, 0.1,
+                                           50.0), np.float64)
+          @ np.asarray(math3d.look_at_rh(eye, [0, 0, 0], [0, 1, 0]),
+                       np.float64))
+    inv_vp = np.linalg.inv(vp).astype(np.float32)
+    return n, p, light, eye, inv_vp
+
+
+def test_blinn_phong_matches_jax():
+    rng = np.random.default_rng(8)
+    n, p, light, eye, _ = lit_inputs(rng)
+    tex = rng.random(n.shape[:2] + (4,)).astype(np.float32)
+    want = jshade.blinn_phong(jnp.asarray(tex), jnp.asarray(n),
+                              jnp.asarray(p), jnp.asarray(light),
+                              jnp.asarray(eye))
+    got = tshade.blinn_phong(torch.from_numpy(tex), torch.from_numpy(n),
+                             torch.from_numpy(p), light, eye)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=LIT_TOL)
+    # zero normals shade ambient only, alpha passes through
+    amb = tex[0, :4, :3] * light[6]
+    np.testing.assert_allclose(got.numpy()[0, :4, :3], amb, atol=1e-6)
+    np.testing.assert_array_equal(got.numpy()[..., 3], tex[..., 3])
+
+
+def test_unproject_window_matches_jax():
+    rng = np.random.default_rng(9)
+    _, _, _, _, inv_vp = lit_inputs(rng)
+    H, W = 24, 40
+    depth = rng.uniform(0.2, 1.0, (H, W)).astype(np.float32)
+    viewport = np.asarray([3, 2, W - 6, H - 4, 0.1, 0.9], np.float32)
+    want = jshade.unproject_window(None, jnp.asarray(depth),
+                                   jnp.asarray(viewport), jnp.asarray(inv_vp),
+                                   W, H)
+    got = tshade.unproject_window(None, torch.from_numpy(depth), viewport,
+                                  inv_vp, W, H)
+    want = np.asarray(want)
+    # a perspective divide of sums of four products: relative to the
+    # position's size
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_lit_shade_visibility_matches_jax():
+    """The lit branch: the winner's normal/w planes by owner id (broad
+    owners after the entry rows), the unprojected position, Blinn-Phong,
+    the blend; pixels without an owner keep the framebuffer."""
+    rng = np.random.default_rng(10)
+    texels, offs, ws, hs = arena(rng)
+    quads = tsampling.make_texel_quads(texels, offs, ws, hs)
+    meta = [np.asarray(a, np.int32) for a in (offs, ws, hs)]
+    _, _, light, eye, inv_vp = lit_inputs(rng)
+    H, W = 24, 40
+    E, B = 90, 10
+    owner = np.where(rng.random((H, W)) < 0.7,
+                     rng.integers(0, E + B, (H, W)), -1).astype(np.int32)
+    iw = rng.uniform(0.2, 2.0, (H, W)).astype(np.float32)
+    maps = dict(owner=owner, depth=rng.uniform(0.3, 1, (H, W)).astype(
+        np.float32), order=rng.random((H, W)).astype(np.float32),
+                uw=(rng.uniform(-1, 2, (H, W)) * iw).astype(np.float32),
+                vw=(rng.uniform(-1, 2, (H, W)) * iw).astype(np.float32),
+                iw=iw, tex=rng.integers(0, 2, (H, W)).astype(np.int32))
+    planes = (rng.normal(size=(E + B, 12)) * ([0.02, 0.02, 1] * 4)).astype(
+        np.float32)
+    viewport = np.asarray([0, 0, W, H, 0, 1], np.float32)
+    dst = rng.random((H, W, 4)).astype(np.float32)
+    want = jshade.shade_visibility(
+        JaxVis(**{k: jnp.asarray(v) for k, v in maps.items()}),
+        jnp.asarray(quads), *map(jnp.asarray, meta),
+        MESH_PIPELINE_STATE.blend, jnp.asarray(dst),
+        lit=(jnp.asarray(planes), jnp.asarray(light), jnp.asarray(inv_vp),
+             jnp.asarray(eye), jnp.asarray(viewport)))
+    got = tshade.shade_visibility(
+        VisibilityBuffer(**{k: torch.from_numpy(v) for k, v in maps.items()}),
+        torch.from_numpy(quads), *map(torch.from_numpy, meta),
+        MESH_PIPELINE_STATE.blend, torch.from_numpy(dst),
+        lit=(torch.from_numpy(planes), light, inv_vp, eye, viewport))
+    np.testing.assert_array_equal(got.numpy()[owner < 0], dst[owner < 0])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=LIT_TOL)
+    unlit = tshade.shade_visibility(
+        VisibilityBuffer(**{k: torch.from_numpy(v) for k, v in maps.items()}),
+        torch.from_numpy(quads), *map(torch.from_numpy, meta),
+        MESH_PIPELINE_STATE.blend, torch.from_numpy(dst))
+    assert np.abs(unlit.numpy() - got.numpy()).max() > 0.05

@@ -19,9 +19,11 @@ never imports JAX.  The ones a program needs to drive a frame are exported
 here (``scenes``, ``RenderScene``, ``ImageViewSwapchain``), so such a
 program imports only ``tyleri_tpu_torch``.
 
-Covered so far: the unlit, UI-free mesh frame through ``RenderWindow``.
-The lit path, the UI overlay, exact mode, peel2 blending and multi-device
-rendering raise ``NotImplementedError``.
+Covered so far: the UI-free mesh frame through ``RenderWindow``, unlit
+(the fused setup kernel) and lit (Blinn-Phong, the clip-space setup path),
+with the two-layer blend (peel2) that the "auto" blend policy engages up to
+2^18 triangles.  The UI overlay, exact mode, anisotropic sampling and
+multi-device rendering raise ``NotImplementedError``.
 """
 
 import importlib
@@ -40,6 +42,9 @@ _EXPORTS = {
     # numpy-only parts of tyleri_tpu, reused as they are
     "RenderScene": "tyleri_tpu.scene.render_scene",
     "ImageViewSwapchain": "tyleri_tpu.window.swapchain",
+    "CompareOp": "tyleri_tpu.pipeline.state",
+    "DepthFormat": "tyleri_tpu.pipeline.state",
+    "DepthState": "tyleri_tpu.pipeline.state",
 }
 # numpy-only modules of tyleri_tpu, reused as they are
 _MODULES = {

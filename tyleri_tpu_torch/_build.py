@@ -95,6 +95,8 @@ def _bind(lib) -> None:
         i, i, i, i,               # scissor
         i, i, i, i,               # owner_base, chunk, le, d16
         p, p, p, p, p, p, p,      # owner, z, order, uw, vw, iw, tex
+        p, p, p, p, p, p, p,      # layer 2 of the same (peel2), or null
+        p,                        # nvis (counts), or null
         p,                        # stream
     ]
 

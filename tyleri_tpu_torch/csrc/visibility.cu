@@ -1,9 +1,14 @@
 // K3: per-tile visibility resolve over the binned entry table.
 //
 // Replaces tyleri_tpu/ops/raster_pallas.py: _visibility_kernel, launched by
-// rasterize_visibility_pallas (base variant: no peel2 carry, no visit
-// counter; the TPU scheduling variants give the same outputs and have no
-// counterpart here).
+// rasterize_visibility_pallas, in its three variants, one template
+// instance each (the TPU scheduling variants give the same outputs and have
+// no counterpart here):
+//   base    <false, false>  the winner per pixel;
+//   peel2   <true,  false>  also layer 2, the depth-record holder just
+//                           before the winner drew (the two-layer blend);
+//   counts  <false, true>   also nvis, the narrow entries resolved per tile
+//                           before the early exit.
 //
 // One CTA per screen tile, one pixel per thread.  The tile's segment
 // [tile_start[t], tile_start[t+1]) of the zmin-sorted entry table streams
@@ -11,10 +16,12 @@
 // every thread then walks the chunk's rows, reading coefficients as
 // shared-memory broadcasts.  After each chunk a block-wide max of the
 // tile's depth gives `thresh`; the next chunk runs only if its first row's
-// CH_ZMIN * (1/65535) <= thresh.  CH_ZMIN is a conservative bound
-// (setup.py::_zmin_quantized), so the exit skips only rows that cannot pass
-// the depth test anywhere in the tile: the result is exact.  The broad
-// (huge-triangle) list is scanned last with a tile-bbox test.
+// CH_ZMIN * (1/65535) <= thresh.  CH_ZMIN bounds the triangle's corner
+// depths less the plane's f32 evaluation error (setup.py::_zmin_quantized),
+// so the exit skips only rows that cannot pass wherever the f32 z plane
+// stays above it; on nearly degenerate triangles it may not (see
+// ops/visibility.py), as in the TPU kernel.  The broad (huge-triangle)
+// list is scanned last with a tile-bbox test.
 //
 // Bound: latency and occupancy.  The work is ~30 flops per pixel-entry and
 // the exit skips the back of deep tiles' segments, so the kernel waits on
@@ -23,9 +30,16 @@
 // 256-thread CTAs share an SM to hide the loads, and skips the loads of
 // chunks past the exit.
 //
+// peel2 keeps a second 7-field state per pixel in registers and applies the
+// three layer-2 rules of raster_pallas.py:262-291 in resolve(); its exit
+// threshold is the block max of the layer-2 depth (z2 >= z1, and an entry
+// beyond every z2 can change neither layer).  counts adds each chunk's row
+// count as it passes the exit test.  Both are `if constexpr` branches, so
+// the base instance carries neither the second state nor the counter.
+//
 // Numerics: built with -fmad=false, rintf (round half to even, as
 // jnp.round), and the float top-left compares, so the maps are bit-equal to
-// rasterize_visibility_reference (ops/visibility.py) on the card.
+// rasterize_visibility_stream_reference (ops/visibility.py) on the card.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,13 +65,21 @@ struct Params {
     int scx, scy, scw, sch;
     int owner_base, chunk, le, d16;
     int* owner; float* z; float* order; float* uw; float* vw; float* iw; int* tex;
+    // layer 2 (peel2 only)
+    int* owner2; float* z2; float* order2; float* uw2; float* vw2; float* iw2;
+    int* tex2;
+    int* nvis;                 // [ntiles] (counts only)
+};
+
+struct Layer {
+    float zbuf, obuf, uw, vw, iw;
+    int owner, tex;
 };
 
 struct Pixel {
     float xf, yf;
     bool live;  // inside the framebuffer and the scissor
-    float zbuf, obuf, uw, vw, iw;
-    int owner, tex;
+    Layer l1, l2;  // l2 is live in the peel2 instance only
 };
 
 __device__ __forceinline__ float plane(const float* c, int row, float x, float y) {
@@ -65,6 +87,7 @@ __device__ __forceinline__ float plane(const float* c, int row, float x, float y
 }
 
 // One entry against this thread's pixel (raster_pallas.py resolve_half).
+template <bool PEEL2>
 __device__ __forceinline__ void resolve(const float* c, int eid, Pixel& px,
                                         bool le, bool d16) {
     const int meta = (int)c[CH_META];
@@ -80,17 +103,43 @@ __device__ __forceinline__ void resolve(const float* c, int eid, Pixel& px,
     const float zq = d16 ? rintf(zc * 65535.0f) * (1.0f / 65535.0f) : zc;
     const float ord = c[CH_ORDER];
     const bool frag = cov && zv == zc && px.live;
-    const bool pass = frag && (zq < px.zbuf
-                               || (zq == px.zbuf && (le ? ord >= px.obuf
-                                                        : ord < px.obuf)));
+    Layer& a = px.l1;
+    const bool pass = frag && (zq < a.zbuf
+                               || (zq == a.zbuf && (le ? ord >= a.obuf
+                                                       : ord < a.obuf)));
+    if constexpr (PEEL2) {
+        // layer 2 = the record holder just before the winner drew:
+        //  * a losing fragment enters it only if drawn before the winner;
+        //  * a new winner demotes the old one if drawn after it; otherwise
+        //    layer 2 stays while drawn before the new winner, else it
+        //    becomes a record gate at the old winner (owner -1).
+        Layer& b = px.l2;
+        const bool beats2 = frag && !pass && ord < a.obuf
+            && (zq < b.zbuf || (zq == b.zbuf && (le ? ord >= b.obuf
+                                                    : ord < b.obuf)));
+        const bool demote = pass && a.obuf < ord;
+        const bool inval = pass && !demote && !(b.obuf < ord);
+        if (demote || inval) {
+            b = a;
+            if (inval) b.owner = -1;
+        } else if (beats2) {
+            b.zbuf = zq;
+            b.owner = eid;
+            b.obuf = ord;
+            b.uw = plane(c, CH_UW, px.xf, px.yf);
+            b.vw = plane(c, CH_VW, px.xf, px.yf);
+            b.iw = plane(c, CH_INVW, px.xf, px.yf);
+            b.tex = meta & META_TEX_MASK;
+        }
+    }
     if (pass) {
-        px.zbuf = zq;
-        px.owner = eid;
-        px.obuf = ord;
-        px.uw = plane(c, CH_UW, px.xf, px.yf);
-        px.vw = plane(c, CH_VW, px.xf, px.yf);
-        px.iw = plane(c, CH_INVW, px.xf, px.yf);
-        px.tex = meta & META_TEX_MASK;
+        a.zbuf = zq;
+        a.owner = eid;
+        a.obuf = ord;
+        a.uw = plane(c, CH_UW, px.xf, px.yf);
+        a.vw = plane(c, CH_VW, px.xf, px.yf);
+        a.iw = plane(c, CH_INVW, px.xf, px.yf);
+        a.tex = meta & META_TEX_MASK;
     }
 }
 
@@ -107,6 +156,7 @@ __device__ float block_max(float v, float* scratch) {
     return m;
 }
 
+template <bool PEEL2, bool COUNTS>
 __global__ void visibility_kernel(Params p) {
     extern __shared__ float smem[];           // [chunk, 24]
     __shared__ float red[32];
@@ -122,16 +172,18 @@ __global__ void visibility_kernel(Params p) {
     px.yf = (float)y + 0.5f;
     px.live = inside && x >= p.scx && x < p.scx + p.scw
               && y >= p.scy && y < p.scy + p.sch;
-    px.zbuf = inside ? p.depth0[(size_t)y * p.fb_w + x] : -INFINITY;
-    px.obuf = -1.0f;
-    px.owner = -1;
-    px.uw = 0.0f; px.vw = 0.0f; px.iw = 1.0f;
-    px.tex = 0;
+    px.l1.zbuf = inside ? p.depth0[(size_t)y * p.fb_w + x] : -INFINITY;
+    px.l1.obuf = -1.0f;
+    px.l1.owner = -1;
+    px.l1.uw = 0.0f; px.l1.vw = 0.0f; px.l1.iw = 1.0f;
+    px.l1.tex = 0;
+    if constexpr (PEEL2) px.l2 = px.l1;
 
     // ---- narrow entries: the tile's segment, front to back ----
     const int start = p.tile_start[t], end = p.tile_start[t + 1];
-    float thresh = block_max(px.zbuf, red);
+    float thresh = block_max(PEEL2 ? px.l2.zbuf : px.l1.zbuf, red);
     const float inv_q = 1.0f / 65535.0f;
+    int visited = 0;
     for (int s = start; s < end; s += p.chunk) {
         const int n = min(p.chunk, end - s);
         __syncthreads();  // the previous chunk is fully consumed
@@ -140,8 +192,13 @@ __global__ void visibility_kernel(Params p) {
         __syncthreads();
         // uniform exit test: shared value against the block-wide thresh
         if (smem[CH_ZMIN] * inv_q > thresh) break;
-        for (int j = 0; j < n; ++j) resolve(smem + j * NC, s + j, px, le, d16);
-        thresh = block_max(px.zbuf, red);
+        if constexpr (COUNTS) visited += n;
+        for (int j = 0; j < n; ++j)
+            resolve<PEEL2>(smem + j * NC, s + j, px, le, d16);
+        thresh = block_max(PEEL2 ? px.l2.zbuf : px.l1.zbuf, red);
+    }
+    if constexpr (COUNTS) {
+        if (threadIdx.x == 0) p.nvis[t] = visited;
     }
 
     // ---- broad entries: every tile scans the list with a bbox test ----
@@ -149,18 +206,28 @@ __global__ void visibility_kernel(Params p) {
     for (int j = 0; j < nb; ++j) {
         const int* bb = p.broad_tiles + 4 * j;
         if (gx >= bb[0] && gx <= bb[2] && gy >= bb[1] && gy <= bb[3])
-            resolve(p.broad_ch + (size_t)j * NC, p.owner_base + j, px, le, d16);
+            resolve<PEEL2>(p.broad_ch + (size_t)j * NC, p.owner_base + j, px,
+                           le, d16);
     }
 
     if (inside) {
         const size_t o = (size_t)y * p.fb_w + x;
-        p.owner[o] = px.owner;
-        p.z[o] = px.zbuf;
-        p.order[o] = px.obuf;
-        p.uw[o] = px.uw;
-        p.vw[o] = px.vw;
-        p.iw[o] = px.iw;
-        p.tex[o] = px.tex;
+        p.owner[o] = px.l1.owner;
+        p.z[o] = px.l1.zbuf;
+        p.order[o] = px.l1.obuf;
+        p.uw[o] = px.l1.uw;
+        p.vw[o] = px.l1.vw;
+        p.iw[o] = px.l1.iw;
+        p.tex[o] = px.l1.tex;
+        if constexpr (PEEL2) {
+            p.owner2[o] = px.l2.owner;
+            p.z2[o] = px.l2.zbuf;
+            p.order2[o] = px.l2.obuf;
+            p.uw2[o] = px.l2.uw;
+            p.vw2[o] = px.l2.vw;
+            p.iw2[o] = px.l2.iw;
+            p.tex2[o] = px.l2.tex;
+        }
     }
 }
 
@@ -173,15 +240,26 @@ extern "C" int ty_rasterize_visibility(
     int scx, int scy, int scw, int sch,
     int owner_base, int chunk, int le, int d16,
     int* owner, float* z, float* order, float* uw, float* vw, float* iw,
-    int* tex, void* stream) {
+    int* tex,
+    int* owner2, float* z2, float* order2, float* uw2, float* vw2, float* iw2,
+    int* tex2, int* nvis, void* stream) {
+    // layer-2 maps select the peel2 instance, nvis the counts instance
     Params p{tile_start, entries, broad_ch, broad_tiles, nbroad, B, depth0,
              fb_w, fb_h, tile_w, tile_h, grid_w, grid_h, scx, scy, scw, sch,
-             owner_base, chunk, le, d16, owner, z, order, uw, vw, iw, tex};
+             owner_base, chunk, le, d16, owner, z, order, uw, vw, iw, tex,
+             owner2, z2, order2, uw2, vw2, iw2, tex2, nvis};
+    if (owner2 != nullptr && nvis != nullptr) return (int)cudaErrorInvalidValue;
     const int ntiles = grid_w * grid_h;
     if (ntiles > 0) {
         const size_t smem = (size_t)chunk * NC * sizeof(float);
-        visibility_kernel<<<ntiles, tile_w * tile_h, smem,
-                            (cudaStream_t)stream>>>(p);
+        const dim3 grid(ntiles), block(tile_w * tile_h);
+        cudaStream_t st = (cudaStream_t)stream;
+        if (owner2 != nullptr)
+            visibility_kernel<true, false><<<grid, block, smem, st>>>(p);
+        else if (nvis != nullptr)
+            visibility_kernel<false, true><<<grid, block, smem, st>>>(p);
+        else
+            visibility_kernel<false, false><<<grid, block, smem, st>>>(p);
     }
     return (int)cudaGetLastError();
 }

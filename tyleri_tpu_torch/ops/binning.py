@@ -48,6 +48,10 @@ class BinnedEntries(NamedTuple):
     num_broad: torch.Tensor       # i32 [] live broad rows
     dense_demand: torch.Tensor    # i32 [] live narrow triangles (pre-cap)
     level_demand: torch.Tensor    # i32 [L] per-spill-level demand (pre-cap)
+    # per-triangle extra rows (the lit path's normal/w planes), gathered
+    # with the entry and broad rows; None without extra rows
+    entry_extra: torch.Tensor = None  # f32 [E_cap, K]
+    broad_extra: torch.Tensor = None  # f32 [B_cap, K]
 
 
 def _level_caps(spill_cap: int, K: int, override=()) -> list[int]:
@@ -75,8 +79,8 @@ def spill_rows(spill_cap: int, K: int = 32, level_caps=()) -> int:
     return total
 
 
-def bin_triangles(setup: TriangleSetup, *, grid_w: int, grid_h: int,
-                  entry_cap: int, max_tiles_per_tri: int = 32,
+def bin_triangles(setup: TriangleSetup, extra=None, *, grid_w: int,
+                  grid_h: int, entry_cap: int, max_tiles_per_tri: int = 32,
                   broad_cap: int = 256, spill_cap: int = 1 << 16,
                   valid_cap: int = 0, spill_level_caps=()) -> BinnedEntries:
     dev = setup.valid.device
@@ -207,4 +211,6 @@ def bin_triangles(setup: TriangleSetup, *, grid_w: int, grid_h: int,
         num_broad=torch.clamp(num_broad, max=broad_cap).to(i32),
         dense_demand=dense_live.to(i32),
         level_demand=level_demand.to(i32),
+        entry_extra=extra[entry_tri] if extra is not None else None,
+        broad_extra=extra[broad_src] if extra is not None else None,
     )

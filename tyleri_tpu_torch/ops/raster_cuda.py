@@ -1,10 +1,10 @@
 """K3: per-tile visibility resolve (counterpart of
-``tyleri_tpu/ops/raster_pallas.py``, base variant).
+``tyleri_tpu/ops/raster_pallas.py``).
 
 ``rasterize_visibility`` runs the CUDA kernel ``csrc/visibility.cu`` on CUDA
-tensors and the plain version ``rasterize_visibility_reference``
-(ops/visibility.py) on CPU tensors.  Each tile streams its whole segment (no
-per-tile capacity, so no tile overflow), front to back with the exact early
+tensors and its plain version ``rasterize_visibility_stream_reference``
+(ops/visibility.py) on CPU tensors.  Each tile streams its whole segment
+(no per-tile capacity, so no tile overflow), front to back with the early
 exit, then the broad list.  The maps come out at [fb_h, fb_w]; pixels past
 the framebuffer are masked inside the kernel.
 """
@@ -21,32 +21,48 @@ from tyleri_tpu_torch.ops.visibility import (
     VisibilityBuffer,
     check_depth_state,
     rasterize_visibility_reference,
+    rasterize_visibility_stream_reference,
 )
 
 __all__ = ["rasterize_visibility", "rasterize_visibility_reference",
-           "launches", "reset_launches"]
+           "rasterize_visibility_stream_reference", "launches",
+           "variant_launches", "reset_launches"]
 
-# kernel launches since the last reset (main-path accounting)
-launches = 0
+# kernel launches per variant since the last reset (main-path accounting)
+variant_launches = {"base": 0, "peel2": 0, "counts": 0}
+
+
+def launches() -> int:
+    """Kernel launches of every variant since the last reset."""
+    return sum(variant_launches.values())
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    for k in variant_launches:
+        variant_launches[k] = 0
 
 
 def rasterize_visibility(binned: BinnedEntries, init_depth, scissor, *,
                          fb_w: int, fb_h: int, tile_w: int, tile_h: int,
                          grid_w: int, grid_h: int, depth_state: DepthState,
-                         chunk: int = 64) -> VisibilityBuffer:
+                         chunk: int = 64, peel2: bool = False,
+                         counts: bool = False):
     """Resolve visibility for every tile.  ``chunk`` is the number of entry
-    rows the kernel stages in shared memory at a time."""
+    rows the kernel stages in shared memory at a time.
+
+    Returns the VisibilityBuffer; with ``peel2`` (vis, layer-2 vis), the
+    depth-record holder before each pixel's winner (owner -1 where there is
+    none or it cannot be named); with ``counts`` (vis, nvis i32 [grid_h,
+    grid_w]), the narrow entries each tile resolved before its early exit.
+    """
+    if peel2 and counts:
+        raise ValueError("peel2 does not compose with counts")
     dev = binned.entry_channels.device
     if dev.type == "cpu":
-        return rasterize_visibility_reference(
+        return rasterize_visibility_stream_reference(
             binned, init_depth, scissor, fb_w=fb_w, fb_h=fb_h, tile_w=tile_w,
             tile_h=tile_h, grid_w=grid_w, grid_h=grid_h,
-            depth_state=depth_state)
+            depth_state=depth_state, chunk=chunk, peel2=peel2, counts=counts)
     if dev.type != "cuda":
         raise ValueError(f"rasterize_visibility: unsupported device {dev}")
     check_depth_state(depth_state)
@@ -81,11 +97,20 @@ def rasterize_visibility(binned: BinnedEntries, init_depth, scissor, *,
     def empty(dtype):
         return torch.empty((fb_h, fb_w), dtype=dtype, device=dev)
 
-    owner, tex = empty(torch.int32), empty(torch.int32)
-    z, order, uw, vw, iw = (empty(torch.float32) for _ in range(5))
+    def maps():
+        return VisibilityBuffer(
+            owner=empty(torch.int32), depth=empty(torch.float32),
+            order=empty(torch.float32), uw=empty(torch.float32),
+            vw=empty(torch.float32), iw=empty(torch.float32),
+            tex=empty(torch.int32))
+
+    vis = maps()
+    vis2 = maps() if peel2 else None
+    nvis = (torch.empty((grid_h, grid_w), dtype=torch.int32, device=dev)
+            if counts else None)
     lib = _build.load()
-    global launches
-    launches += 1
+    variant_launches["peel2" if peel2 else "counts" if counts else
+                     "base"] += 1
     err = lib.ty_rasterize_visibility(
         binned.tile_start.data_ptr(), binned.entry_channels.data_ptr(),
         binned.broad_channels.data_ptr(), binned.broad_tiles.data_ptr(),
@@ -95,9 +120,13 @@ def rasterize_visibility(binned: BinnedEntries, init_depth, scissor, *,
         E, chunk,
         int(depth_state.compare_op == CompareOp.LESS_OR_EQUAL),
         int(depth_state.format == DepthFormat.D16_UNORM),
-        owner.data_ptr(), z.data_ptr(), order.data_ptr(), uw.data_ptr(),
-        vw.data_ptr(), iw.data_ptr(), tex.data_ptr(),
+        *(t.data_ptr() for t in vis),
+        *(t.data_ptr() for t in vis2) if peel2 else (None,) * 7,
+        nvis.data_ptr() if counts else None,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rasterize_visibility")
-    return VisibilityBuffer(owner=owner, depth=z, order=order, uw=uw, vw=vw,
-                            iw=iw, tex=tex)
+    if peel2:
+        return vis, vis2
+    if counts:
+        return vis, nvis
+    return vis

@@ -60,6 +60,10 @@ class TriangleSetup(NamedTuple):
     channels: torch.Tensor  # f32 [T, NUM_CHANNELS]
     tile_lo: torch.Tensor   # i32 [T, 2] inclusive tile bbox (tx0, ty0)
     tile_hi: torch.Tensor   # i32 [T, 2] inclusive tile bbox (tx1, ty1)
+    # f32 [T, 3, 3] barycentric planes, lam[t, i] = (A, B, C) of lambda_i,
+    # for interpolating extra attributes (the lit path's normals); None on
+    # the fused path, which has no such attributes
+    lam: torch.Tensor = None
 
 
 def viewport_floats(viewport) -> list[float]:
@@ -220,6 +224,8 @@ def triangle_planes(sx, sy, sz, iw, u, v, tri_valid, tex_id, order, viewport,
         channels=channels,
         tile_lo=torch.stack([tx0, ty0], dim=1),
         tile_hi=torch.stack([tx1, ty1], dim=1),
+        lam=torch.stack([torch.stack(lam, dim=1)
+                         for lam in (lamA, lamB, lamC)], dim=2),
     )
 
 
@@ -245,12 +251,16 @@ def setup_triangles(clip, uv, tex_id, tri_valid, viewport, scissor, *,
 
 
 def build_triangle_table(positions, uvs, indices, first_index, vertex_offset,
-                         tri_base, tri_count, *, tri_capacity: int):
+                         tri_base, tri_count, *, tri_capacity: int,
+                         normals=None):
     """Materialize the per-triangle corner table of a draw list (once per
     draw-list change; the per-frame vertex stage is matrix math only).
 
     Returns (corner f32 [Tcap, 3, 5] = pos + uv per corner, draw i32
-    [Tcap], valid bool [Tcap])."""
+    [Tcap], valid bool [Tcap], corner normals f32 [Tcap, 3, 3] or None).
+    The normals are a table of their own, gathered only when ``normals``
+    [V, 3] is given (lit frames), so the fused setup kernel's row-major
+    [Tcap, 3, 5] table keeps its stride."""
     dev = positions.device
     D = first_index.shape[0]
     I = indices.shape[0]
@@ -266,7 +276,8 @@ def build_triangle_table(positions, uvs, indices, first_index, vertex_offset,
     vtx = torch.clamp(tri_idx + vertex_offset[draw][:, None], 0,
                       positions.shape[0] - 1)
     verts5 = torch.cat([positions, uvs], dim=1)
-    return verts5[vtx], draw.to(torch.int32), in_draw
+    corner_nrm = normals[vtx] if normals is not None else None
+    return verts5[vtx], draw.to(torch.int32), in_draw, corner_nrm
 
 
 def transform_corner_table(corner, draw, mvps):

@@ -68,7 +68,7 @@ def fused_setup_reference(corners, tri_draw, tri_tex, tri_valid, mvps,
         sx, sy, sz, iw, corners[..., 3], corners[..., 4], valid0 & in_front,
         tex, order, viewport, scissor, tile_w=tile_w, tile_h=tile_h,
         grid_w=grid_w, grid_h=grid_h, cull_mode=cull_mode,
-        front_face=front_face)
+        front_face=front_face)._replace(lam=None)   # the kernel has none
     return su, crossed.to(torch.int32).sum().to(torch.int32), crossed
 
 

@@ -11,18 +11,36 @@ processes last for LESS_OR_EQUAL and first for LESS; narrow entries run in
 table order, then the broad list, so that is the larger owner id for
 LESS_OR_EQUAL and the smaller for LESS.
 
-``rasterize_visibility_reference`` computes what the CUDA kernel
-(ops/raster_cuda.py) computes, from the same binned table: every entry of
-every tile's segment (the kernel's early exit only skips entries that
-cannot pass), then the broad list.  It evaluates entries in blocks, each
-against the pixels of its tile, and reduces per pixel with packed integer
-keys, so its memory stays bounded at 1080p.
+``rasterize_visibility_stream_reference`` is the plain version of the CUDA
+kernel (ops/raster_cuda.py) in all three variants.  It streams every
+tile's segment in the kernel's order (position k of every tile at once,
+then the broad list), with the kernel's per-pixel state and its chunked
+early exit: before each chunk of ``chunk`` rows, a tile stops once the
+chunk's first CH_ZMIN bound lies beyond the tile's deepest depth.  Two
+variants depend on that order and have no other form:
+
+* peel2 carries a second layer per pixel, the depth-record holder just
+  before the winner drew, for the two-layer sequential blend;
+* the visit counter counts, per tile, the narrow entries the kernel
+  resolves before its exit.
+
+``rasterize_visibility_reference`` resolves the same table with no exit:
+every entry of every tile's segment, then the broad list, evaluated in
+blocks against the pixels of each tile and reduced per pixel with packed
+integer keys.  It is the depth test's exact answer.  The exit skips only
+entries that cannot pass wherever an entry's z plane stays above its
+CH_ZMIN bound, which holds up to the f32 rounding of the plane's
+evaluation; on a nearly degenerate triangle the rounding of |2A| scales
+the whole plane, which can dip below the bound, and the exit then skips
+an entry that would have won (a few pixels of a 1080p sponza frame; the
+JAX package's Pallas kernel exits the same way).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from tyleri_tpu.pipeline.state import CompareOp, DepthFormat, DepthState
@@ -43,15 +61,20 @@ class VisibilityBuffer(NamedTuple):
     tex: torch.Tensor    # i32 [H, W] winner texture slot
 
 
+def k3_supports(depth_state: DepthState) -> bool:
+    """Depth test + write with LESS or LESS_OR_EQUAL: the states K3 and its
+    plain versions resolve (others need exact mode)."""
+    return (depth_state.test_enable and depth_state.write_enable
+            and depth_state.compare_op in (CompareOp.LESS,
+                                           CompareOp.LESS_OR_EQUAL))
+
+
 def check_depth_state(depth_state: DepthState) -> None:
-    if depth_state.compare_op not in (CompareOp.LESS,
-                                      CompareOp.LESS_OR_EQUAL):
+    if not k3_supports(depth_state):
         raise NotImplementedError(
-            "the visibility resolve supports LESS/LESS_OR_EQUAL; other "
-            "compare ops need exact mode (not yet ported)")
-    if not (depth_state.test_enable and depth_state.write_enable):
-        raise NotImplementedError("the visibility resolve needs depth "
-                                  "test+write")
+            "the visibility resolve supports depth test+write with "
+            "LESS/LESS_OR_EQUAL; other depth states need exact mode (not "
+            "yet ported)")
 
 
 def _plane(ch, row, xf, yf):
@@ -127,8 +150,8 @@ def rasterize_visibility_reference(
         binned: BinnedEntries, init_depth, scissor, *, fb_w: int, fb_h: int,
         tile_w: int, tile_h: int, grid_w: int, grid_h: int,
         depth_state: DepthState) -> VisibilityBuffer:
-    """Plain version of K3.  ``init_depth`` f32 [fb_h, fb_w]; scissor 4
-    host ints."""
+    """K3's resolve with no early exit (the depth test's exact answer).
+    ``init_depth`` f32 [fb_h, fb_w]; scissor 4 host ints."""
     check_depth_state(depth_state)
     dev = binned.entry_channels.device
     le = depth_state.compare_op == CompareOp.LESS_OR_EQUAL
@@ -208,3 +231,171 @@ def rasterize_visibility_reference(
         iw=hw(plane_or(S.CH_INVW, one)),
         tex=hw(torch.where(won, tex, torch.zeros_like(tex))),
     )
+
+
+class _Layer:
+    """One layer of the kernel's per-pixel state, [tiles, tile pixels]."""
+
+    FIELDS = ("owner", "z", "order", "uw", "vw", "iw", "tex")
+
+    def __init__(self, z0):
+        self.owner = torch.full_like(z0, -1, dtype=torch.int32)
+        self.z = z0.clone()
+        self.order = torch.full_like(z0, -1.0)
+        self.uw = torch.zeros_like(z0)
+        self.vw = torch.zeros_like(z0)
+        self.iw = torch.ones_like(z0)
+        self.tex = torch.zeros_like(z0, dtype=torch.int32)
+
+
+def _stream_step(l1: _Layer, l2: _Layer | None, n: int, ch, eid, xf, yf,
+                 live, le: bool, d16: bool) -> None:
+    """One entry per tile (ch [n or 1, 24], eid [n or 1, 1] i32) against the
+    pixels of the first n tiles: the kernel's update, raster_pallas.py
+    resolve_half, including the three layer-2 rules of peel2 (:262-291)."""
+    def c(row):
+        return ch[:, row:row + 1]
+
+    def plane(row):
+        return (c(row) * xf + c(row + 1) * yf) + c(row + 2)
+
+    meta = c(S.CH_META).to(torch.int32)
+    tl = meta >> S.META_TEX_BITS
+    e0 = plane(S.CH_E0)
+    e1 = plane(S.CH_E1)
+    e2 = (c(S.CH_TWOA) - e0) - e1
+    cov = (((e0 > 0) | ((e0 == 0) & ((tl & 1) > 0)))
+           & ((e1 > 0) | ((e1 == 0) & ((tl & 2) > 0)))
+           & ((e2 > 0) | ((e2 == 0) & ((tl & 4) > 0))))
+    z = plane(S.CH_Z)
+    zc = torch.clamp(z, 0.0, 1.0)
+    zq = torch.round(zc * 65535.0) * S.INV_D16 if d16 else zc
+    order = c(S.CH_ORDER)
+    frag = cov & (z == zc) & live
+    z1, o1 = l1.z[:n], l1.order[:n]
+    passing = frag & ((zq < z1) | ((zq == z1) & (
+        (order >= o1) if le else (order < o1))))
+    new = dict(owner=eid, z=zq, order=order, uw=plane(S.CH_UW),
+               vw=plane(S.CH_VW), iw=plane(S.CH_INVW),
+               tex=meta & S.META_TEX_MASK)
+    updates = []
+    if l2 is not None:
+        z2, o2 = l2.z[:n], l2.order[:n]
+        # a non-winning fragment enters layer 2 only if drawn before the
+        # winner; a new winner demotes the old one only if drawn after it,
+        # else layer 2 keeps its holder while still drawn before the new
+        # winner, or becomes a record gate (owner -1) at the old winner
+        beats2 = (frag & ~passing & (order < o1) & ((zq < z2) | (
+            (zq == z2) & ((order >= o2) if le else (order < o2)))))
+        demote = passing & (o1 < order)
+        inval = passing & ~demote & ~(o2 < order)
+        repl = demote | inval
+        for f in _Layer.FIELDS:
+            old1, old2 = getattr(l1, f)[:n], getattr(l2, f)[:n]
+            if f == "owner":
+                took = torch.where(demote, old1, torch.where(
+                    inval, -1, torch.where(beats2, new[f], old2)))
+            else:
+                took = torch.where(repl, old1,
+                                   torch.where(beats2, new[f], old2))
+            updates.append((getattr(l2, f), took))
+    for f in _Layer.FIELDS:
+        old = getattr(l1, f)[:n]
+        updates.append((getattr(l1, f), torch.where(passing, new[f], old)))
+    for dst, val in updates:   # every new value is computed from old state
+        dst[:n] = val
+
+
+def rasterize_visibility_stream_reference(
+        binned: BinnedEntries, init_depth, scissor, *, fb_w: int, fb_h: int,
+        tile_w: int, tile_h: int, grid_w: int, grid_h: int,
+        depth_state: DepthState, peel2: bool = False, counts: bool = False,
+        chunk: int = 64):
+    """Plain version of K3 in the kernel's stream order, early exit
+    included (raster_pallas.py:381-446).
+
+    Returns the VisibilityBuffer; with ``peel2`` (vis, layer-2 vis); with
+    ``counts`` (vis, nvis i32 [grid_h, grid_w]), where nvis counts the
+    narrow entries of every chunk of ``chunk`` rows the kernel resolves
+    before its early exit (raster_pallas.py:400-410,429)."""
+    check_depth_state(depth_state)
+    if peel2 and counts:
+        raise ValueError("peel2 does not compose with counts")
+    dev = binned.entry_channels.device
+    le = depth_state.compare_op == CompareOp.LESS_OR_EQUAL
+    d16 = depth_state.format == DepthFormat.D16_UNORM
+    scx, scy, scw, sch = S.scissor_ints(scissor)
+    ntiles, P = grid_w * grid_h, tile_w * tile_h
+
+    # tiles by descending segment length: the tiles still streaming at
+    # position k are a prefix, so every step works on views
+    ts = binned.tile_start.long()
+    seg, perm = torch.sort(ts[1:] - ts[:-1], descending=True, stable=True)
+    start = ts[:-1][perm]
+    seg_host = seg.cpu().numpy()
+    lx = torch.arange(P, device=dev) % tile_w
+    ly = torch.arange(P, device=dev) // tile_w
+    x = (perm % grid_w * tile_w)[:, None] + lx
+    y = (perm // grid_w * tile_h)[:, None] + ly
+    inside = (x < fb_w) & (y < fb_h)
+    live = (inside & (x >= scx) & (x < scx + scw) & (y >= scy)
+            & (y < scy + sch))
+    xf = x.to(torch.float32) + 0.5
+    yf = y.to(torch.float32) + 0.5
+    pix = torch.clamp(y, max=fb_h - 1) * fb_w + torch.clamp(x, max=fb_w - 1)
+    z0 = torch.where(inside, init_depth.reshape(-1).to(torch.float32)[pix],
+                     torch.full_like(xf, -float("inf")))
+    l1 = _Layer(z0)
+    l2 = _Layer(z0) if peel2 else None
+    alive = torch.ones((ntiles,), dtype=torch.bool, device=dev)
+    nvis = torch.zeros((ntiles,), dtype=torch.int64, device=dev)
+
+    ent = binned.entry_channels
+    # tiles whose segment is longer than k, for every position k
+    n_at = np.searchsorted(-seg_host, -np.arange(int(seg_host.max(
+        initial=0))), side="left")
+    for k, n in enumerate(n_at.tolist()):
+        rows = start[:n] + k
+        ch = ent[rows]
+        if k % chunk == 0:
+            # the kernel's exit test before chunk k // chunk: the deepest
+            # depth of the tile (of layer 2 under peel2)
+            thresh = (l2 or l1).z[:n].amax(dim=1)
+            alive[:n] &= ch[:, S.CH_ZMIN] * S.INV_D16 <= thresh
+            if counts:
+                nvis[:n] += torch.where(
+                    alive[:n], torch.clamp(seg[:n] - k, max=chunk), 0)
+        _stream_step(l1, l2, n, ch, rows.to(torch.int32)[:, None], xf[:n],
+                     yf[:n], live[:n] & alive[:n, None], le, d16)
+
+    # broad entries after the narrow stream, every tile in the bbox
+    owner_base = ent.shape[0]
+    nb = min(int(binned.num_broad), binned.broad_channels.shape[0])
+    gx, gy = perm % grid_w, perm // grid_w
+    for j in range(nb):
+        tx0, ty0, tx1, ty1 = binned.broad_tiles[j].tolist()
+        in_box = (gx >= tx0) & (gx <= tx1) & (gy >= ty0) & (gy <= ty1)
+        eid = torch.full((1, 1), owner_base + j, dtype=torch.int32,
+                         device=dev)
+        _stream_step(l1, l2, ntiles, binned.broad_channels[j:j + 1], eid,
+                     xf, yf, live & in_box[:, None], le, d16)
+
+    inv = torch.argsort(perm)
+
+    def image(t):
+        t = t[inv].reshape(grid_h, grid_w, tile_h, tile_w)
+        return t.permute(0, 2, 1, 3).reshape(grid_h * tile_h,
+                                             grid_w * tile_w)[:fb_h, :fb_w]
+
+    def buffer(layer):
+        return VisibilityBuffer(owner=image(layer.owner), depth=image(layer.z),
+                                order=image(layer.order), uw=image(layer.uw),
+                                vw=image(layer.vw), iw=image(layer.iw),
+                                tex=image(layer.tex))
+
+    vis = buffer(l1)
+    if peel2:
+        return vis, buffer(l2)
+    if counts:
+        return vis, nvis[inv].to(torch.int32).reshape(grid_h, grid_w)
+    return vis

@@ -3,14 +3,20 @@
 src/rendering_function/forward_rendering/mod.rs).
 
 Per frame: clear (color [0,0,0,0], depth 1.0 — mod.rs:218-229), then one
-mesh pass per camera (rendering/passes.py).  Capacities are plan values
-that grow on reported overflow and shrink to fitted demand after clean
-frames (``note_overflow``).  Eager PyTorch has no compile step, so a plan
-change costs nothing beyond the next frame's allocations.
+mesh pass per camera (rendering/passes.py): unlit frames take the fused
+setup kernel (``mesh_pass_fused``), lit frames (a camera with a
+DirectionalLight) the clip-space path with world normals (``mesh_pass``).
+Capacities are plan values that grow on reported overflow and shrink to
+fitted demand after clean frames (``note_overflow``).  Eager PyTorch has
+no compile step, so a plan change costs nothing beyond the next frame's
+allocations.
 
-Not ported yet (each raises NotImplementedError): the UI overlay, the lit
-path (cameras with a DirectionalLight), exact mode, the peel2 two-layer
-blend, anisotropic sampling and multi-device rendering.
+The blend-parity policy (``_apply_blend_parity``) turns on the two-layer
+blend (peel2) for blending scenes of at most BLEND_PARITY_PEEL2_MAX_TRIS
+triangles, as the JAX package does wherever its kernel runs.
+
+Not ported yet (each raises NotImplementedError): the UI overlay, exact
+mode, anisotropic sampling and multi-device rendering.
 """
 
 from __future__ import annotations
@@ -23,9 +29,17 @@ import torch
 from tyleri_tpu.device import debug
 from tyleri_tpu.pipeline.common_pipeline import CommonPipeline
 from tyleri_tpu_torch.ops.binning import spill_rows
-from tyleri_tpu_torch.ops.setup import build_triangle_table
+from tyleri_tpu_torch.ops.setup import (
+    build_triangle_table,
+    transform_corner_table,
+)
+from tyleri_tpu_torch.ops.visibility import k3_supports
 from tyleri_tpu_torch.rendering.function import Frame
-from tyleri_tpu_torch.rendering.passes import RasterPlan, mesh_pass_fused
+from tyleri_tpu_torch.rendering.passes import (
+    RasterPlan,
+    mesh_pass,
+    mesh_pass_fused,
+)
 from tyleri_tpu_torch.resource.arenas import geometry_tensors
 from tyleri_tpu_torch.resource.textures import texture_tensors
 
@@ -33,8 +47,9 @@ CLEAR_COLOR = (0.0, 0.0, 0.0, 0.0)  # ref: mod.rs:218-223
 CLEAR_DEPTH = 1.0                   # ref: mod.rs:224-229
 _GRANULE = 1 << 16
 
-# Above this many triangles the JAX package's "auto" blend policy ships the
-# single-survivor path even where its peel2 kernel exists.
+# "auto" blend policy: above this many triangles the single-survivor blend
+# ships and the deviation is reported (the JAX package's threshold: at
+# config-5 scale two layers still leave many pixels off).
 BLEND_PARITY_PEEL2_MAX_TRIS = 1 << 18
 
 
@@ -64,6 +79,7 @@ class FramePlan:
     cam_cap: int = 1
     draw_cap: int = 16
     tri_cap: int = 1 << 12
+    lit: bool = False   # Blinn-Phong: some camera has a DirectionalLight
 
 
 def quantize_unorm8(color: torch.Tensor, opaque: bool) -> torch.Tensor:
@@ -75,15 +91,31 @@ def quantize_unorm8(color: torch.Tensor, opaque: bool) -> torch.Tensor:
     return u8
 
 
+def world_normals(corner_nrm, tri_draw, models):
+    """World-space corner normals [T, 3, 3]: corner_nrm [T, 3, 3] through
+    the inverse-transpose of each draw's model rotation (models f32
+    [D, 4, 4]), computed in f32 on the device."""
+    nm = torch.linalg.inv_ex(models[:, :3, :3]).inverse   # [D, 3, 3]
+    m = nm[tri_draw.long()][:, None]                      # [T, 1, 3, 3]
+    # (nm^T n)_j = sum_k n_k nm[k, j], as f32 products and sums
+    return torch.stack([
+        (corner_nrm[..., 0] * m[..., 0, j] + corner_nrm[..., 1] * m[..., 1, j])
+        + corner_nrm[..., 2] * m[..., 2, j] for j in range(3)], dim=-1)
+
+
 def frame_body(plan: FramePlan, mesh_state, texels, tex_offset, tex_width,
                tex_height, clear_color, cam_valid, viewports, scissors, mvps,
-               corners, tri_draw, tri_valid0, tri_tex) -> Frame:
+               corners, tri_draw, tri_valid0, tri_tex, corner_nrm=None,
+               models=None, lights=None, inv_vps=None, eyes=None) -> Frame:
     """One frame: clear -> one mesh pass per live camera.
 
     cam_valid bool [C], viewports f32 [C, 6] and scissors i32 [C, 4] are
     host arrays; mvps f32 [C, D, 16] and the cached triangle tables
     (corners [C, T, 3, 5], tri_draw/tri_tex i32 [C, T], tri_valid0 bool
-    [C, T]) live on the device."""
+    [C, T]) live on the device.  Lit frames add the corner normals
+    [C, T, 3, 3] and the models f32 [C, D, 4, 4] on the device, and the
+    lights f32 [C, 12], inverse view-projections [C, 4, 4] and eyes [C, 3]
+    on the host."""
     dev = corners.device
     H, W = plan.raster.fb_h, plan.raster.fb_w
     color = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
@@ -100,10 +132,21 @@ def frame_body(plan: FramePlan, mesh_state, texels, tex_offset, tex_width,
     for c in range(plan.cam_cap):
         if not cam_valid[c]:
             continue
-        color, depth, st, pass_order = mesh_pass_fused(
-            plan.raster, mesh_state, color, depth, corners[c], tri_draw[c],
-            tri_tex[c], tri_valid0[c], mvps[c], True, viewports[c],
-            scissors[c], texels, tex_offset, tex_width, tex_height)
+        if plan.lit:
+            clip, uv = transform_corner_table(corners[c], tri_draw[c],
+                                              mvps[c])
+            color, depth, st, pass_order = mesh_pass(
+                plan.raster, mesh_state, color, depth, clip, uv, tri_tex[c],
+                tri_valid0[c], viewports[c], scissors[c], texels, tex_offset,
+                tex_width, tex_height,
+                normals=world_normals(corner_nrm[c], tri_draw[c], models[c]),
+                lit_params=(lights[c], inv_vps[c], eyes[c]))
+        else:
+            color, depth, st, pass_order = mesh_pass_fused(
+                plan.raster, mesh_state, color, depth, corners[c],
+                tri_draw[c], tri_tex[c], tri_valid0[c], mvps[c], True,
+                viewports[c], scissors[c], texels, tex_offset, tex_width,
+                tex_height)
         order = torch.where(pass_order >= 0.0, c * span + pass_order + 1.0,
                             order)
         bin_of = bin_of + st.bin_overflow
@@ -133,9 +176,6 @@ class ForwardRenderingFunction:
             raise NotImplementedError(
                 "exact mode (ordered per-fragment rasterization) is not "
                 "ported yet")
-        if blend_parity == "peel2":
-            raise NotImplementedError(
-                "peel2 needs the K3 layer-2 carry, which is not ported yet")
         self.render_device = render_device
         self.blend_parity = blend_parity
         self._blend_parity_warned = False
@@ -144,7 +184,10 @@ class ForwardRenderingFunction:
         self.mesh_state = dataclasses.replace(
             state, depth=dataclasses.replace(
                 state.depth, format=render_device.depth_format))
-        self.plan = FramePlan(raster=RasterPlan.for_scene(w, h, 1 << 12))
+        raster = RasterPlan.for_scene(w, h, 1 << 12)
+        if blend_parity == "peel2":
+            raster = dataclasses.replace(raster, peel2=True)
+        self.plan = FramePlan(raster=raster)
         # capacity feedback (the JAX package's discipline): spill headroom
         # doubles on bin overflow; the near clip turns off after a
         # crossing-free streak and back on at the first crossing (with
@@ -175,15 +218,21 @@ class ForwardRenderingFunction:
             self.plan, raster=dataclasses.replace(
                 self.plan.raster, fb_w=int(w), fb_h=int(h)))
 
-    def _apply_blend_parity(self) -> None:
+    def _apply_blend_parity(self, raster: RasterPlan, n_tris: int
+                            ) -> RasterPlan:
         """The reference blends every overlapping mesh fragment in
         submission order (common_pipeline.rs:117-131); the visibility path
-        blends only the final survivor.  peel2 (two-layer blending) is not
-        ported, so the deviation is reported once, as the JAX package does
-        wherever its peel2 kernel does not run."""
-        if (self.blend_parity in ("auto", "fast")
-                and self.mesh_state.blend.enable
-                and not self._blend_parity_warned):
+        blends the final survivor, and peel2 also the survivor before it
+        (exact wherever a pixel has at most two).  "auto" engages peel2 up
+        to BLEND_PARITY_PEEL2_MAX_TRIS triangles, where K3 supports the
+        depth state; above it, or pinned "fast", the single layer ships
+        and the deviation is reported once.  "peel2" pins it on."""
+        if self.blend_parity == "peel2" or not self.mesh_state.blend.enable:
+            return raster
+        effective = (self.blend_parity == "auto"
+                     and n_tris <= BLEND_PARITY_PEEL2_MAX_TRIS
+                     and k3_supports(self.mesh_state.depth))
+        if not effective and not self._blend_parity_warned:
             self._blend_parity_warned = True
             self.render_device.debug_messenger.emit(
                 debug.Severity.WARNING,
@@ -191,12 +240,15 @@ class ForwardRenderingFunction:
                 "order-dependent color blend on the visibility path: only "
                 "the final visible fragment is blended; overlapping "
                 "fragments that each pass the depth test would accumulate "
-                "differently (peel2 two-layer blending and exact mode are "
-                "not ported yet)",
+                "differently (peel2 adds two-layer sequential blending; "
+                "exact mode, not ported yet, gives full per-fragment "
+                "parity)",
                 debug.MessageType.PERFORMANCE,
             )
+        return dataclasses.replace(raster, peel2=effective)
 
-    def _grow_plan(self, n_cams: int, n_draws: int, n_tris: int) -> None:
+    def _grow_plan(self, n_cams: int, n_draws: int, n_tris: int,
+                   lit: bool) -> None:
         p = self.plan
         tri_cap = _cap_growth(n_tris, _GRANULE, p.tri_cap)
         spill_cap = _cap_growth(int(self._spill_headroom * n_tris), _GRANULE,
@@ -223,10 +275,10 @@ class ForwardRenderingFunction:
         raster = dataclasses.replace(
             p.raster, entry_cap=entry_cap, spill_cap=spill_cap,
             valid_cap=valid_cap, spill_level_caps=self._spill_fit)
-        self._apply_blend_parity()
+        raster = self._apply_blend_parity(raster, n_tris)
         new = FramePlan(raster=raster, cam_cap=max(n_cams, p.cam_cap),
                         draw_cap=_next_pow2(n_draws, p.draw_cap),
-                        tri_cap=tri_cap)
+                        tri_cap=tri_cap, lit=lit)
         if new != p:
             self.plan = new
 
@@ -343,17 +395,17 @@ class ForwardRenderingFunction:
                            scale_factor, window_size):
         """Grow the plan, then assemble the frame's inputs: host arrays for
         per-camera state, device tensors for textures, MVPs and the cached
-        triangle tables."""
+        triangle tables; for lit frames also the models (device), the
+        lights, inverse view-projections and eyes (host)."""
         if render_resources.ui and render_resources.ui_indices.len > 0:
             raise NotImplementedError("the UI overlay is not ported yet")
         cams = render_resources.cameras
-        if any(getattr(c, "light", None) is not None for c in cams):
-            raise NotImplementedError(
-                "lit shading (DirectionalLight) is not ported yet")
+        lit = any(getattr(c, "light", None) is not None for c in cams)
         n_draws = max((len(c.mesh_renderers) for c in cams), default=0)
         n_tris = max((sum(m.triangle_count for m in c.mesh_renderers)
                       for c in cams), default=0)
-        self._grow_plan(max(len(cams), 1), max(n_draws, 1), max(n_tris, 1))
+        self._grow_plan(max(len(cams), 1), max(n_draws, 1), max(n_tris, 1),
+                        lit)
         plan = self.plan
         dev = render_device.device
         texels, toff, tw, th = texture_tensors(
@@ -365,6 +417,10 @@ class ForwardRenderingFunction:
         viewports[:, 2:4] = 1.0
         scissors = np.zeros((C, 4), np.int32)
         mvps = np.tile(np.eye(4, dtype=np.float32).reshape(16), (C, D, 1))
+        models = np.tile(np.eye(4, dtype=np.float32), (C, D, 1, 1))
+        lights = np.zeros((C, 12), np.float32)
+        inv_vps = np.tile(np.eye(4, dtype=np.float32), (C, 1, 1))
+        eyes = np.zeros((C, 3), np.float32)
         cam_sigs = []
         for ci, cam in enumerate(cams):
             cam_valid[ci] = True
@@ -375,35 +431,48 @@ class ForwardRenderingFunction:
             scissors[ci] = [sc.x, sc.y, sc.width, sc.height]
             view_proj = np.zeros((4, 4), np.float32)
             view_proj[:] = cam.get_projection_matrix() @ cam.view_matrix
+            if plan.lit:
+                if cam.light is not None:
+                    lights[ci] = cam.light.as_array()
+                inv_vps[ci] = np.linalg.inv(
+                    view_proj.astype(np.float64)).astype(np.float32)
+                eyes[ci] = cam.eye_position()
             for di, mesh in enumerate(cam.mesh_renderers):
+                models[ci, di] = mesh.model
                 mvps[ci, di] = (view_proj.astype(np.float64)
                                 @ np.asarray(mesh.model, np.float64)
                                 ).astype(np.float32).reshape(16)
             cam_sigs.append(tuple(
                 (m.indices.offset, m.indices.len, m.vertices.offset,
                  m.texture.slot) for m in cam.mesh_renderers))
-        corners, tri_draw, tri_valid0, tri_tex = self._triangle_tables(
-            render_device, cams, cam_sigs, plan)
-        mvps = torch.from_numpy(mvps)
-        if dev.type == "cuda":
-            # pinned, so the upload is queued without waiting on the stream
-            mvps = mvps.pin_memory()
+        tables = self._triangle_tables(render_device, cams, cam_sigs, plan)
+
+        def upload(a):
+            t = torch.from_numpy(a)
+            if dev.type == "cuda":
+                # pinned, so the upload is queued without waiting on the
+                # stream
+                t = t.pin_memory()
+            return t.to(dev, non_blocking=True)
+
         return (texels, toff, tw, th, CLEAR_COLOR, cam_valid, viewports,
-                scissors, mvps.to(dev, non_blocking=True),
-                corners, tri_draw, tri_valid0, tri_tex)
+                scissors, upload(mvps), *tables,
+                upload(models) if plan.lit else None, lights, inv_vps, eyes)
 
     def _triangle_tables(self, render_device, cams, cam_sigs, plan):
-        """Per-camera triangle tables [C, T, ...], rebuilt only when a
-        draw list or the geometry arenas change."""
+        """Per-camera triangle tables [C, T, ...] (corners, draw, valid,
+        tex, and the corner normals on lit frames, else None), rebuilt only
+        when a draw list or the geometry arenas change."""
         alloc = render_device.memory_allocator
-        key = (plan.cam_cap, plan.draw_cap, plan.tri_cap, tuple(cam_sigs),
+        key = (plan.cam_cap, plan.draw_cap, plan.tri_cap, plan.lit,
+               tuple(cam_sigs),
                alloc.static_vertices_buffer.version,
                alloc.static_indices_buffer.version)
         cached = self._tri_table_cache
         if cached is not None and cached[0] == key:
             return cached[1]
         dev = render_device.device
-        positions, uvs, indices = geometry_tensors(alloc, dev)
+        positions, uvs, normals, indices = geometry_tensors(alloc, dev)
         C, D, Tcap = plan.cam_cap, plan.draw_cap, plan.tri_cap
         per_cam = []
         for ci in range(C):
@@ -426,10 +495,13 @@ class ForwardRenderingFunction:
             tri_base[len(meshes):] = base
             t = [torch.as_tensor(a).to(dev) for a in
                  (first_index, vertex_offset, tri_base, tri_count, draw_tex)]
-            corner, draw, valid = build_triangle_table(
-                positions, uvs, indices, *t[:4], tri_capacity=Tcap)
-            per_cam.append((corner, draw, valid, t[4][draw.long()]))
+            corner, draw, valid, nrm = build_triangle_table(
+                positions, uvs, indices, *t[:4], tri_capacity=Tcap,
+                normals=normals if plan.lit else None)
+            per_cam.append((corner, draw, valid, t[4][draw.long()], nrm))
         tables = tuple(torch.stack([pc[k] for pc in per_cam]).contiguous()
                        for k in range(4))
+        tables += (torch.stack([pc[4] for pc in per_cam]).contiguous()
+                   if plan.lit else None,)
         self._tri_table_cache = (key, tables)
         return tables

@@ -1,11 +1,21 @@
 """The mesh pass: setup -> near clip -> binning -> visibility -> shade
-(counterpart of ``tyleri_tpu/rendering/passes.py``, fused path).
+(counterpart of ``tyleri_tpu/rendering/passes.py``).
 
-The port always takes the fused path: the K1+K2 kernel sets up every
-triangle and flags near-plane crossers; with near clipping on, only the
-flagged rows are re-transformed, clipped and set up again in PyTorch and
-spliced back (``_fused_clip_subset``); then binning, the K3 visibility
-kernel and the deferred shade.
+Two entries, as in the JAX package:
+
+* ``mesh_pass_fused`` (unlit frames): the K1+K2 kernel sets up every
+  triangle and flags near-plane crossers; with near clipping on, only the
+  flagged rows are re-transformed, clipped and set up again in PyTorch and
+  spliced back (``_fused_clip_subset``);
+* ``mesh_pass`` (lit frames): clip-space triangles from the per-frame
+  vertex stage, the near clip or cull with the world normals riding the
+  attribute slot, setup in PyTorch, and the normal/w planes as extra rows.
+
+Both then bin, run the K3 visibility kernel and shade.  With
+``RasterPlan.peel2`` K3 also returns layer 2, the depth-record holder just
+before each pixel's winner drew, which is shaded into the framebuffer
+first, then the winner over it: the last two steps of the reference's
+per-fragment blend chain.
 """
 
 from __future__ import annotations
@@ -17,7 +27,12 @@ import torch
 
 from tyleri_tpu.pipeline.state import PipelineState
 from tyleri_tpu_torch.ops.binning import bin_triangles
-from tyleri_tpu_torch.ops.clip import clip_work_set, compact_slots
+from tyleri_tpu_torch.ops.clip import (
+    clip_work_set,
+    compact_slots,
+    near_clip_triangles,
+    near_cull_triangles,
+)
 from tyleri_tpu_torch.ops.raster_cuda import rasterize_visibility
 from tyleri_tpu_torch.ops.setup import TriangleSetup, setup_triangles
 from tyleri_tpu_torch.ops.setup_cuda import fused_setup
@@ -47,6 +62,7 @@ class RasterPlan:
     spill_level_caps: tuple = ()  # learned per-level cap fit
     valid_cap: int = 0         # dense slots for live narrow triangles
     near_clip: bool = True     # False: cull crossers and report them
+    peel2: bool = False        # two-layer blend (K3 carries layer 2)
 
     @property
     def grid_w(self) -> int:
@@ -161,19 +177,72 @@ def mesh_pass_fused(plan: RasterPlan, state: PipelineState, color, depth,
                           clip_crossings=crossings)
 
 
+def mesh_pass(plan: RasterPlan, state: PipelineState, color, depth, clip,
+              uv, tex_id, tri_valid, viewport, scissor, texels, tex_offset,
+              tex_width, tex_height, normals=None, lit_params=None):
+    """One camera's mesh pass from clip-space triangles (lit frames).
+    clip f32 [T, 3, 4], uv f32 [T, 3, 2], tex_id i32 [T], tri_valid bool
+    [T]; normals f32 [T, 3, 3] world-space corner normals and lit_params =
+    (light [12], inv_vp [4, 4], eye [3]) on the host.  Returns (color,
+    depth, PassStats, order_map)."""
+    lit = normals is not None and lit_params is not None
+    # normals ride the uv slot through the near clip (its rotate/lerp is
+    # shape-agnostic on the attribute axis)
+    attrs = torch.cat([uv, normals], dim=-1) if lit else uv
+    clip_fn = near_clip_triangles if plan.near_clip else near_cull_triangles
+    ct = clip_fn(clip, attrs, tex_id, tri_valid, extra_cap=plan.clip_cap)
+    dims = setup_dims(plan)
+    su = setup_triangles(ct.clip, ct.uv[..., :2], ct.tex_id, ct.valid,
+                         viewport, scissor, order=ct.order,
+                         cull_mode=state.raster.cull_mode,
+                         front_face=state.raster.front_face, **dims)
+    extra = None
+    if lit:
+        # world-normal/w planes per (post-clip) triangle: plane-evaluating
+        # n_k / w, then multiplying by w per pixel, is the perspective-
+        # correct normal interpolation (Vulkan 27.7)
+        w = ct.clip[..., 3]
+        iw = torch.where(torch.abs(w) > 1e-12, 1.0 / w, torch.zeros_like(w))
+        nw_iw = ct.uv[..., 2:5] * iw[..., None]          # [T, 3 corners, 3]
+        lam = su.lam                                     # [T, 3 corners, 3]
+        planes = torch.stack([
+            (nw_iw[:, 0, k, None] * lam[:, 0] + nw_iw[:, 1, k, None]
+             * lam[:, 1]) + nw_iw[:, 2, k, None] * lam[:, 2]
+            for k in range(3)], dim=1)                   # [T, 3, 3]
+        extra = torch.cat([planes.reshape(-1, 9),
+                           planes.new_zeros((planes.shape[0], 3))], dim=1)
+    return _raster_binned(plan, state, color, depth, su, scissor, texels,
+                          tex_offset, tex_width, tex_height,
+                          clip_overflow=ct.overflow,
+                          clip_crossings=ct.crossings, extra=extra,
+                          lit_params=lit_params if lit else None,
+                          viewport=viewport)
+
+
 def _raster_binned(plan: RasterPlan, state: PipelineState, color, depth, su,
                    scissor, texels, tex_offset, tex_width, tex_height, *,
-                   clip_overflow, clip_crossings):
+                   clip_overflow, clip_crossings, extra=None,
+                   lit_params=None, viewport=None):
     binned = bin_triangles(
-        su, grid_w=plan.grid_w, grid_h=plan.grid_h,
+        su, extra, grid_w=plan.grid_w, grid_h=plan.grid_h,
         entry_cap=plan.entry_cap, max_tiles_per_tri=plan.max_tiles_per_tri,
         broad_cap=plan.broad_cap, spill_cap=plan.spill_cap,
         valid_cap=plan.valid_cap, spill_level_caps=plan.spill_level_caps)
     vis = rasterize_visibility(
         binned, depth, scissor, fb_w=plan.fb_w, fb_h=plan.fb_h,
-        depth_state=state.depth, chunk=plan.chunk, **setup_dims(plan))
-    color = shade_visibility(vis, texels, tex_offset, tex_width, tex_height,
-                             state.blend, color)
+        depth_state=state.depth, chunk=plan.chunk, peel2=plan.peel2,
+        **setup_dims(plan))
+    layers = list(vis) if plan.peel2 else [vis]   # (vis, vis2)
+    vis = layers[0]
+    lit = None
+    if lit_params is not None:
+        light, inv_vp, eye = lit_params
+        nw_planes = torch.cat([binned.entry_extra, binned.broad_extra])
+        lit = (nw_planes, light, inv_vp, eye, viewport)
+    # layer 2 blends into the incoming framebuffer first, the winner over it
+    for layer in reversed(layers):
+        color = shade_visibility(layer, texels, tex_offset, tex_width,
+                                 tex_height, state.blend, color, lit=lit)
     pass_order = torch.where(vis.owner >= 0, vis.order,
                              torch.full_like(vis.order, -1.0))
     stats = PassStats(binned.overflow, torch.zeros_like(binned.overflow),

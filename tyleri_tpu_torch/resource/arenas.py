@@ -38,8 +38,9 @@ def device_arrays(arena: BindlessBufferAllocator, device: torch.device
 
 
 def geometry_tensors(allocator, device: torch.device):
-    """(positions f32 [V, 3], uvs f32 [V, 2], indices i64 [I]) of a
-    ``tyleri_tpu.resource.allocator.MemoryAllocator`` on ``device``."""
+    """(positions f32 [V, 3], uvs f32 [V, 2], normals f32 [V, 3], indices
+    i64 [I]) of a ``tyleri_tpu.resource.allocator.MemoryAllocator`` on
+    ``device``."""
     v = device_arrays(allocator.static_vertices_buffer, device)
     i = device_arrays(allocator.static_indices_buffer, device)
-    return v["pos"], v["uv"], i["idx"]
+    return v["pos"], v["uv"], v["nrm"], i["idx"]

@@ -2,13 +2,16 @@
 device kernel time per frame, the largest kernels and the eager op count.
 
     python3 -m tyleri_tpu_torch.testing.profile_frame [--frames N]
+        [--scene sponza|instances]
 
-Config 5 (sponza, 1.05M triangles) at 1920x1080 by default.  The camera
+Config 5 (sponza, 1.05M triangles) at 1920x1080 by default, or config 4
+(100 instances, peel2 under the "auto" blend policy).  The sponza camera
 orbits across the near plane and then stands still until the capacity plan
-has converged (as in chip_smoke.py); then N frames run unprofiled (CUDA
-events on the frame stream, host timers around each stage) and N more
-under torch.profiler (device time of every kernel and copy).  The report's
-first line is the card's name and power limit.
+has converged (as in chip_smoke.py); config 4 stands still throughout.
+Then N frames run unprofiled (CUDA events on the frame stream, host timers
+around each stage) and N more under torch.profiler (device time of every
+kernel and copy).  The report's first line is the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -78,6 +81,8 @@ def main(argv=None) -> int:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--grid-n", type=int, default=420,
                     help="sponza heightfield size (420: 1.05M triangles)")
+    ap.add_argument("--scene", choices=("sponza", "instances"),
+                    default="sponza", help="config 5 or config 4")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: no CUDA device", file=sys.stderr)
@@ -92,9 +97,14 @@ def main(argv=None) -> int:
     messages = []   # overflows while the plan converges are expected
     dev = tt.RenderDeviceBuilder().validation_level(
         tt.ValidationLevel.ERROR).debug_callback(messages.append).build()
-    rig = tt.scenes.config5_sponza(dev, res, grid_n=args.grid_n)
+    if args.scene == "sponza":
+        rig = tt.scenes.config5_sponza(dev, res, grid_n=args.grid_n)
+        t, warm = 0.0, [0.25 * k for k in range(1, 25)] + [0.0] * 40
+    else:
+        rig = tt.scenes.config4_instances(dev, res)
+        t, warm = 0.5, [0.5] * 40
     win = tt.RenderWindow(dev, resolution=res, present_mode="immediate")
-    render(win, rig, [0.25 * k for k in range(1, 25)] + [0.0] * 40)
+    render(win, rig, warm)
     win.flush()
     converged = len(messages)
 
@@ -104,13 +114,14 @@ def main(argv=None) -> int:
     with stage_timers() as host:
         start.record(stream)
         t0 = time.perf_counter()
-        render(win, rig, [0.0] * n)
+        render(win, rig, [t] * n)
         end.record(stream)
         win.flush()
         host_ms = (time.perf_counter() - t0) * 1e3 / n
     end.synchronize()
     frame_ms = start.elapsed_time(end) / n
-    print(f"{rig.triangle_count} triangles at {res[0]}x{res[1]}, {n} frames")
+    print(f"{rig.triangle_count} triangles at {res[0]}x{res[1]}, {n} frames,"
+          f" peel2 {win.rendering_function.plan.raster.peel2}")
     print(f"unprofiled: {frame_ms:.3f} ms/frame by CUDA events, "
           f"{host_ms:.3f} ms/frame by host clock")
     for name, s in sorted(host.items(), key=lambda kv: -kv[1]):
@@ -121,7 +132,7 @@ def main(argv=None) -> int:
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        render(win, rig, [0.0] * n)
+        render(win, rig, [t] * n)
         win.flush()
     rows = prof.key_averages()
     device = sorted(
