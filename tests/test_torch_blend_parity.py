@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 
 import tyleri_tpu_torch as tt
-from tyleri_tpu.pipeline.state import CompareOp
+from tyleri_tpu_torch.pipeline.state import CompareOp
 from tyleri_tpu_torch.rendering import forward
 
 RES = (64, 64)

@@ -3,7 +3,8 @@ package's RenderWindow and against the numpy oracle, on the CPU.
 
 Both packages render from the same bytes: the scene is uploaded once
 through the JAX package's API and copied into the port's device
-(tyleri_tpu_torch.interop), and the port starts from the JAX plan.  On the
+(tyleri_tpu_torch.interop), the port starts from the JAX plan, and each
+frame's JAX scene is rebuilt with the port's classes (``from_jax``).  On the
 CPU the JAX package takes its XLA path (setup, near clip, binning, the XLA
 visibility resolve) unless a test forces its Pallas kernel in interpret
 mode; the port takes its own path, with the kernels' plain versions.
@@ -38,7 +39,11 @@ import tyleri_tpu_torch as tt
 from tyleri_tpu.models import scenes
 from tyleri_tpu.scene.render_scene import RenderScene
 from tyleri_tpu.window.render_window import RenderWindow as JaxWindow
-from tyleri_tpu_torch.interop import load_render_device, raster_plan_from_jax
+from tyleri_tpu_torch.interop import (
+    from_jax,
+    load_render_device,
+    raster_plan_from_jax,
+)
 from tyleri_tpu_torch.testing.scene_oracle import (
     mismatch_fraction,
     scene_oracle_u8,
@@ -82,8 +87,23 @@ def twin_windows(make, res, callback=None, blend_parity="auto",
     return rig, jwin, twin
 
 
+def port_scene(rig, t):
+    """The JAX rig's frame at ``t`` as a port RenderScene."""
+    scene = RenderScene()
+    rig.fill(scene, t)
+    return from_jax(scene)
+
+
 def one_frame(win, rig, t):
-    rig.fill(win.get_render_scene(), t)
+    """Render and present one frame; a port window gets a JAX rig's cameras
+    rebuilt with the port's classes."""
+    scene = win.get_render_scene()
+    if (isinstance(win, tt.RenderWindow)
+            and not isinstance(rig, tt.scenes.SceneRig)):
+        for cam in port_scene(rig, t).render_resources.cameras:
+            scene.add_camera(cam)
+    else:
+        rig.fill(scene, t)
     win.render()
     return win.flush()
 
@@ -109,9 +129,8 @@ def test_frame_matches_jax_and_oracle(name):
         assert differ == 0.0
     assert differ <= BUDGET
 
-    scene = RenderScene()
-    rig.fill(scene, t)
-    oracle = scene_oracle_u8(twin.render_device, scene.render_resources,
+    oracle = scene_oracle_u8(twin.render_device,
+                             port_scene(rig, t).render_resources,
                              twin.rendering_function.mesh_state, res)
     bad = mismatch_fraction(got, oracle)
     print(f"{name}: {bad:.4%} px differ from the oracle")
@@ -158,9 +177,8 @@ def test_peel2_frame_matches_jax_and_sequential_oracle(name):
     print(f"{name}: {differ:.4%} px differ from the JAX frame")
     assert differ <= BUDGET
 
-    scene = RenderScene()
-    rig.fill(scene, t)
-    oracle = scene_oracle_u8(twin.render_device, scene.render_resources,
+    oracle = scene_oracle_u8(twin.render_device,
+                             port_scene(rig, t).render_resources,
                              trf.mesh_state, res, sequential=True)
     bad = mismatch_fraction(got, oracle, tol)
     fast = tt.RenderWindow(twin.render_device, resolution=res,
@@ -175,11 +193,11 @@ def test_reduced_sponza_converges_through_the_fit_stages():
     """Frames through the port's window move its plan through the near
     clip, the clip skip and both capacity-fit stages, with no overflow, and
     the converged plan renders the frame the first plan rendered."""
-    make, res, _ = CONFIGS["config5"]
+    _, res, _ = CONFIGS["config5"]
     messages = []
     dev = tt.RenderDeviceBuilder().device("cpu").validation_level(
         tt.ValidationLevel.WARNING).debug_callback(messages.append).build()
-    rig = make(dev, res)
+    rig = tt.scenes.config5_sponza(dev, res, grid_n=24)
     win = tt.RenderWindow(dev, resolution=res, present_mode="immediate")
     rf = win.rendering_function
     first = one_frame(win, rig, 0.0)
@@ -205,9 +223,9 @@ def test_profile_stage_timers_cover_the_frame():
     put the stages back afterwards."""
     from tyleri_tpu_torch.testing.profile_frame import STAGES, stage_timers
 
-    make, res, t = CONFIGS["config5"]
+    _, res, t = CONFIGS["config5"]
     dev = tt.RenderDeviceBuilder().device("cpu").build()
-    rig = make(dev, res)
+    rig = tt.scenes.config5_sponza(dev, res, grid_n=24)
     win = tt.RenderWindow(dev, resolution=res, present_mode="immediate")
     before = [getattr(owner, name) for owner, name in STAGES]
     with stage_timers() as host:

@@ -1,8 +1,8 @@
-"""The port stands alone: it imports no JAX, picks no device silently and
-leaves the kernels alone on the CPU.
+"""The port stands alone: it imports no JAX and nothing of the JAX
+package, picks no device silently and leaves the kernels alone on the CPU.
 
-The isolation check runs in a subprocess: this test process has JAX loaded
-already (the repository's root conftest imports it).
+The isolation check runs in a subprocess: this test process has JAX and the
+JAX package loaded already (the repository's root conftest imports them).
 """
 
 import os
@@ -19,20 +19,29 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAME = textwrap.dedent("""
     import sys
     import tyleri_tpu_torch as tt
-    from tyleri_tpu.models import scenes
     from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
 
     dev = tt.RenderDeviceBuilder().device("cpu").build()
-    rig = scenes.config1_triangle(dev, (64, 64))
+    rig = tt.scenes.config1_triangle(dev, (64, 64))
     win = tt.RenderWindow(dev, resolution=rig.resolution,
                           present_mode="immediate")
     rig.fill(win.get_render_scene(), 0.0)
     win.render()
     img = win.flush()
     assert img.shape == (64, 64, 4) and img[32, 32, 0] == 255, img[32, 32]
+    # the lit path (config 3)
+    rig = tt.scenes.config3_suzanne(dev, (48, 48))
+    win = tt.RenderWindow(dev, resolution=rig.resolution,
+                          present_mode="immediate")
+    rig.fill(win.get_render_scene(), 0.3)
+    win.render()
+    assert win.rendering_function.plan.lit and win.flush()[..., :3].any()
     assert (setup_cuda.launches, raster_cuda.launches()) == (0, 0)
     jax_modules = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     assert not jax_modules, jax_modules[:5]
+    ours = [m for m in sys.modules
+            if m == "tyleri_tpu" or m.startswith("tyleri_tpu.")]
+    assert not ours, ours[:5]
     print("ok")
 """)
 
@@ -55,9 +64,27 @@ def test_package_sources_never_import_jax():
             assert not jax_import.search(f.read()), path
 
 
+def test_sources_never_import_the_jax_package():
+    """No module of the port, and not chip_smoke.py, imports ``tyleri_tpu``
+    or a module of it, by statement or by a module string handed to
+    importlib."""
+    statement = re.compile(
+        r"^\s*(?:import|from)\s+tyleri_tpu(?:\.[\w.]+)?(?:\s|,|$)", re.M)
+    string = re.compile(r"[\"']tyleri_tpu(?:\.[\w.]*)?[\"']")
+    sources = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(os.path.join(ROOT, "tyleri_tpu_torch")):
+        sources += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    assert len(sources) > 40
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        assert not statement.search(text), (path, statement.search(text))
+        assert not string.search(text), (path, string.search(text))
+
+
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py runs where the JAX package is not installed: it reaches
-    the reused numpy-only modules through tyleri_tpu_torch."""
+    the port's copies of the numpy-only modules through tyleri_tpu_torch."""
     imports = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         names = set(imports.findall(f.read()))
@@ -83,14 +110,13 @@ def test_builder_without_cuda_raises():
 def test_cpu_tensors_never_launch_kernels():
     """The wrappers route CPU tensors to the plain versions; the launch
     counters (which count kernel launches only) stay at zero."""
-    from tyleri_tpu.models import scenes
     import tyleri_tpu_torch as tt
     from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
 
     setup_cuda.reset_launches()
     raster_cuda.reset_launches()
     dev = tt.RenderDeviceBuilder().device("cpu").build()
-    rig = scenes.config2_cube(dev, (48, 32))
+    rig = tt.scenes.config2_cube(dev, (48, 32))
     win = tt.RenderWindow(dev, resolution=rig.resolution,
                           present_mode="immediate")
     for f in range(3):
@@ -107,7 +133,6 @@ def test_unported_paths_raise(what):
     import numpy as np
 
     import tyleri_tpu_torch as tt
-    from tyleri_tpu.models import scenes
 
     dev = tt.RenderDeviceBuilder().device("cpu").build()
     kw = {"exact": dict(exact=True),
@@ -116,7 +141,7 @@ def test_unported_paths_raise(what):
         with pytest.raises(NotImplementedError):
             tt.RenderWindow(dev, resolution=(32, 32), **kw)
         return
-    rig = scenes.config1_triangle(dev, (32, 32))
+    rig = tt.scenes.config1_triangle(dev, (32, 32))
     win = tt.RenderWindow(dev, resolution=(32, 32), present_mode="immediate")
     scene = win.get_render_scene()
     rig.fill(scene, 0.0)

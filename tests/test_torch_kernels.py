@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from tyleri_tpu.pipeline.state import CompareOp, DepthFormat, DepthState
+from tyleri_tpu_torch.pipeline.state import CompareOp, DepthFormat, DepthState
 from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
 from tyleri_tpu_torch.ops import setup as S
 from tyleri_tpu_torch.ops.binning import BinnedEntries, bin_triangles
@@ -54,7 +54,7 @@ def rand_scene(rng, T, D):
 
 @pytest.mark.parametrize("tiles", [(16, 16), (8, 8), (64, 16)])
 def test_fused_setup_bit_equal(cuda_device, tiles):
-    from tyleri_tpu.pipeline.state import CullMode
+    from tyleri_tpu_torch.pipeline.state import CullMode
 
     tile_w, tile_h = tiles
     W, H = 320, 192

@@ -32,6 +32,7 @@ from tyleri_tpu.ops import setup as jsetup
 from tyleri_tpu.ops import setup_pallas as jpallas
 from tyleri_tpu.pipeline.state import MESH_PIPELINE_STATE
 from tyleri_tpu.rendering import passes as jpasses
+from tyleri_tpu_torch.interop import from_jax
 from tyleri_tpu_torch.ops import clip as tclip
 from tyleri_tpu_torch.ops import setup as tsetup
 from tyleri_tpu_torch.ops import setup_cuda
@@ -243,7 +244,7 @@ def test_fused_clip_subset_splice_matches_jax():
         su_in, t(np.asarray(crossed_j)),
         (t(np.pad(corner, ((0, pad), (0, 0), (0, 0)))),
          t(np.pad(draw, (0, pad))), t(np.pad(tex, (0, pad)))),
-        t(mvps16), VIEWPORT, SCISSOR, MESH_PIPELINE_STATE, X, DIMS)
+        t(mvps16), VIEWPORT, SCISSOR, from_jax(MESH_PIPELINE_STATE), X, DIMS)
     assert int(of_t) == int(of_j) > 0      # more crossers than X
     assert got.channels.shape == tuple(want.channels.shape)
     live = check_setup(got, want, "fused_clip_subset")

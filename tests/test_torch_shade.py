@@ -27,6 +27,7 @@ from tyleri_tpu.pipeline.state import (
     DepthFormat,
 )
 from tyleri_tpu.rendering.forward import quantize_unorm8 as jquantize
+from tyleri_tpu_torch.interop import from_jax
 from tyleri_tpu_torch.ops import blend as tblend
 from tyleri_tpu_torch.ops import depth as tdepth
 from tyleri_tpu_torch.ops import sampling as tsampling
@@ -97,7 +98,7 @@ def test_apply_blend_matches_jax(name):
     dst = rng.random((32, 32, 4)).astype(np.float32)
     state = BLENDS[name]
     want = jblend.apply_blend(state, jnp.asarray(src), jnp.asarray(dst))
-    got = tblend.apply_blend(state, torch.from_numpy(src),
+    got = tblend.apply_blend(from_jax(state), torch.from_numpy(src),
                              torch.from_numpy(dst))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=FLOAT_TOL)
@@ -126,7 +127,7 @@ def test_shade_visibility_matches_jax():
     got = tshade.shade_visibility(
         VisibilityBuffer(**{k: torch.from_numpy(v) for k, v in maps.items()}),
         torch.from_numpy(quads), *map(torch.from_numpy, meta),
-        MESH_PIPELINE_STATE.blend, torch.from_numpy(dst))
+        from_jax(MESH_PIPELINE_STATE.blend), torch.from_numpy(dst))
     np.testing.assert_array_equal(got.numpy()[owner < 0], dst[owner < 0])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=FLOAT_TOL)
@@ -149,7 +150,8 @@ def test_quantize_depth_equals_jax(fmt):
                         np.random.default_rng(6).uniform(-0.2, 1.2, 20000)]
                        ).astype(np.float32)
     np.testing.assert_array_equal(
-        tdepth.quantize_depth(torch.from_numpy(z), fmt).numpy(),
+        tdepth.quantize_depth(torch.from_numpy(z),
+                              from_jax(fmt)).numpy(),
         np.asarray(jdepth.quantize_depth(jnp.asarray(z), fmt)))
 
 
@@ -242,7 +244,7 @@ def test_lit_shade_visibility_matches_jax():
     got = tshade.shade_visibility(
         VisibilityBuffer(**{k: torch.from_numpy(v) for k, v in maps.items()}),
         torch.from_numpy(quads), *map(torch.from_numpy, meta),
-        MESH_PIPELINE_STATE.blend, torch.from_numpy(dst),
+        from_jax(MESH_PIPELINE_STATE.blend), torch.from_numpy(dst),
         lit=(torch.from_numpy(planes), light, inv_vp, eye, viewport))
     np.testing.assert_array_equal(got.numpy()[owner < 0], dst[owner < 0])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
@@ -250,5 +252,5 @@ def test_lit_shade_visibility_matches_jax():
     unlit = tshade.shade_visibility(
         VisibilityBuffer(**{k: torch.from_numpy(v) for k, v in maps.items()}),
         torch.from_numpy(quads), *map(torch.from_numpy, meta),
-        MESH_PIPELINE_STATE.blend, torch.from_numpy(dst))
+        from_jax(MESH_PIPELINE_STATE.blend), torch.from_numpy(dst))
     assert np.abs(unlit.numpy() - got.numpy()).max() > 0.05

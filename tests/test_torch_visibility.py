@@ -32,6 +32,7 @@ from tyleri_tpu.ops import setup as jsetup
 from tyleri_tpu.ops import visibility as jvis
 from tyleri_tpu.ops.raster_pallas import rasterize_visibility_pallas
 from tyleri_tpu.pipeline.state import CompareOp, DepthFormat, DepthState
+from tyleri_tpu_torch.interop import from_jax
 from tyleri_tpu_torch.ops import binning as tbinning
 from tyleri_tpu_torch.ops import raster_cuda
 from tyleri_tpu_torch.ops import setup as tsetup
@@ -81,6 +82,12 @@ def to_torch(b) -> BinnedEntries:
 def depth_state(op, fmt=DepthFormat.D16_UNORM):
     return DepthState(test_enable=True, write_enable=True, compare_op=op,
                       format=fmt)
+
+
+def port(kw):
+    """The same keywords with the JAX depth state rebuilt with the port's
+    classes."""
+    return dict(kw, depth_state=from_jax(kw["depth_state"]))
 
 
 def assert_maps_match(got, want, binned, name):
@@ -137,7 +144,7 @@ def test_reference_matches_pallas_and_xla(case):
         binned, jnp.asarray(depth0), jnp.asarray(scissor), cap_per_tile=256,
         chunk=32, **kw)
     got = raster_cuda.rasterize_visibility(
-        to_torch(binned), torch.from_numpy(depth0), scissor, **kw)
+        to_torch(binned), torch.from_numpy(depth0), scissor, **port(kw))
     assert raster_cuda.launches() == 0  # CPU tensors take the plain version
     # narrow and broad entries, nothing dropped
     assert int(binned.num_broad) > 1 and int(binned.overflow) == 0
@@ -158,7 +165,7 @@ def test_wrapper_rejects_peel2_with_counts():
     for fn in (raster_cuda.rasterize_visibility,
                rasterize_visibility_stream_reference):
         with pytest.raises(ValueError):
-            fn(binned, depth0, (0, 0, FB_W, FB_H), **kw)
+            fn(binned, depth0, (0, 0, FB_W, FB_H), **port(kw))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -175,8 +182,10 @@ def test_stream_reference_without_peel2_equals_packed(case):
                                    / 65535.0).astype(np.float32))
     kw = dict(fb_w=FB_W, fb_h=FB_H, tile_w=TILE_W, tile_h=TILE_H, **GRID,
               depth_state=depth_state(op))
-    got = rasterize_visibility_stream_reference(binned, depth0, scissor, **kw)
-    want = rasterize_visibility_reference(binned, depth0, scissor, **kw)
+    got = rasterize_visibility_stream_reference(binned, depth0, scissor,
+                                                **port(kw))
+    want = rasterize_visibility_reference(binned, depth0, scissor,
+                                          **port(kw))
     for f in want._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
 
@@ -280,7 +289,7 @@ def test_stream_reference_peel2_matches_pallas(case):
         interpret=True, peel2=True, **kw)
     tb = to_torch(binned)
     got, got2 = raster_cuda.rasterize_visibility(
-        tb, torch.from_numpy(depth0), scissor, peel2=True, **kw)
+        tb, torch.from_numpy(depth0), scissor, peel2=True, **port(kw))
     assert raster_cuda.launches() == 0   # CPU tensors take the plain version
     assert_layer_matches(got, want, tb, f"{case} layer 1")
     assert_layer_matches(got2, want2, tb, f"{case} layer 2")
@@ -334,7 +343,8 @@ def test_stream_reference_counts_match_pallas_debug_counts(case):
         interpret=True, debug_counts=True, **kw)
     tb = to_torch(binned)
     got, nvis = raster_cuda.rasterize_visibility(
-        tb, torch.from_numpy(depth0), scissor, chunk=128, counts=True, **kw)
+        tb, torch.from_numpy(depth0), scissor, chunk=128, counts=True,
+        **port(kw))
     np.testing.assert_array_equal(nvis.numpy(), np.asarray(want_nvis))
     assert_layer_matches(got, want, tb, case)
     skipped = int(binned.num_entries) - int(nvis.sum())
@@ -419,16 +429,16 @@ def test_early_exit_skips_a_sliver_whose_plane_dips_below_its_bound():
     kw = dict(depth_state=depth_state(CompareOp.LESS_OR_EQUAL), **SLIVER_DIMS)
     depth0 = torch.ones((H, W))
     got = raster_cuda.rasterize_visibility(binned, depth0, (0, 0, W, H),
-                                           chunk=1, **kw)
+                                           chunk=1, **port(kw))
     exact = rasterize_visibility_reference(binned, depth0, (0, 0, W, H),
-                                           **kw)
+                                           **port(kw))
     assert float(exact.order[py, px]) == SLIVER_ORDER
     assert float(got.order[py, px]) != SLIVER_ORDER
     assert float(got.depth[py, px]) == pytest.approx(d, abs=1e-7)
     # with chunks long enough to hold the whole segment the exit never
     # runs, and the two resolves agree
     whole = raster_cuda.rasterize_visibility(binned, depth0, (0, 0, W, H),
-                                             chunk=64, **kw)
+                                             chunk=64, **port(kw))
     for f in exact._fields:
         assert torch.equal(getattr(whole, f), getattr(exact, f)), f
 
@@ -457,7 +467,8 @@ def test_pallas_early_exit_skips_the_same_sliver():
     assert float(want.order[py, px]) != SLIVER_ORDER
     assert float(want.depth[py, px]) == pytest.approx(d, abs=1e-7)
     got = raster_cuda.rasterize_visibility(
-        binned, torch.from_numpy(depth0), (0, 0, W, H), chunk=4, **kw)
+        binned, torch.from_numpy(depth0), (0, 0, W, H), chunk=4,
+        **port(kw))
     for f in ("owner", "depth", "order", "tex"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(want, f)), f)

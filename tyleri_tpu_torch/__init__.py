@@ -11,13 +11,19 @@ ctypes, see ``_build.py``):
 Every kernel has a plain PyTorch version in the same module.  A wrapper
 routes a CPU tensor to the plain version and a CUDA tensor to the kernel.
 
-The layout mirrors ``tyleri_tpu`` (device/, resource/, ops/, rendering/,
-window/), so each module's counterpart lives under the same path.  The
-numpy-only modules of ``tyleri_tpu`` (pipeline state, scenes, models, the
-oracle, math, allocators, swapchain) are imported, not copied; this package
-never imports JAX.  The ones a program needs to drive a frame are exported
-here (``scenes``, ``RenderScene``, ``ImageViewSwapchain``), so such a
-program imports only ``tyleri_tpu_torch``.
+The layout mirrors ``tyleri_tpu`` (api/, device/, models/, native/,
+pipeline/, resource/, scene/, ops/, rendering/, testing/, utils/, window/),
+so each module's counterpart lives under the same path.  The package imports
+nothing of ``tyleri_tpu`` and never imports JAX: the numpy-only modules it
+needs (pipeline state, scenes, models, the oracle, math, allocators,
+swapchain, the native host runtime) are its own copies, held against their
+originals by ``tests/test_torch_vendored.py``.  What a program needs to
+drive a frame is exported here (``scenes``, ``RenderScene``,
+``ImageViewSwapchain``).
+
+``tools/`` holds the port of the JAX package's TPU probe tools
+(``python3 -m tyleri_tpu_torch.tools.<name>``), each a hand-written CUDA
+kernel of ``csrc/probes.cu`` beside its plain version.
 
 Covered so far: the UI-free mesh frame through ``RenderWindow``, unlit
 (the fused setup kernel) and lit (Blinn-Phong, the clip-space setup path),
@@ -39,16 +45,14 @@ _EXPORTS = {
     "RenderWindow": "tyleri_tpu_torch.window.render_window",
     "WindowHandle": "tyleri_tpu_torch.window.render_window",
     "RasterPlan": "tyleri_tpu_torch.rendering.passes",
-    # numpy-only parts of tyleri_tpu, reused as they are
-    "RenderScene": "tyleri_tpu.scene.render_scene",
-    "ImageViewSwapchain": "tyleri_tpu.window.swapchain",
-    "CompareOp": "tyleri_tpu.pipeline.state",
-    "DepthFormat": "tyleri_tpu.pipeline.state",
-    "DepthState": "tyleri_tpu.pipeline.state",
+    "RenderScene": "tyleri_tpu_torch.scene.render_scene",
+    "ImageViewSwapchain": "tyleri_tpu_torch.window.swapchain",
+    "CompareOp": "tyleri_tpu_torch.pipeline.state",
+    "DepthFormat": "tyleri_tpu_torch.pipeline.state",
+    "DepthState": "tyleri_tpu_torch.pipeline.state",
 }
-# numpy-only modules of tyleri_tpu, reused as they are
 _MODULES = {
-    "scenes": "tyleri_tpu.models.scenes",
+    "scenes": "tyleri_tpu_torch.models.scenes",
 }
 
 __all__ = sorted(_EXPORTS) + sorted(_MODULES)

@@ -14,8 +14,8 @@ import enum
 
 import torch
 
-from tyleri_tpu.device.debug import DebugMessenger, Severity
-from tyleri_tpu.pipeline.state import DepthFormat
+from tyleri_tpu_torch.device.debug import DebugMessenger, Severity
+from tyleri_tpu_torch.pipeline.state import DepthFormat
 from tyleri_tpu_torch.device.render_device import RenderDevice
 
 DEFAULT_DEPTH_FORMAT = DepthFormat.D16_UNORM  # ref: builders.rs:31

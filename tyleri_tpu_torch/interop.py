@@ -3,22 +3,85 @@
 The parity tests build a scene once, through the JAX package's upload API,
 and render it with both packages.  These helpers copy what that upload
 wrote (numpy staging arrays, the allocators' slot and offset tables) into a
-port ``RenderDevice``, so both packages render from the same bytes, and
-carry a ``RasterPlan`` across so both run with the same capacities.
+port ``RenderDevice``, so both packages render from the same bytes, carry a
+``RasterPlan`` across so both run with the same capacities, and rebuild the
+JAX package's pipeline states and scenes with the port's classes
+(``from_jax``): the port's enums are its own, and a lookup keyed by one
+raises on the JAX package's member of the same name.
 
-Nothing here imports JAX: a JAX ``RenderDevice`` is read only through its
-numpy state.
+Nothing here imports the JAX package: its objects are read only through
+their attributes, numpy arrays and class names.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 import numpy as np
 
-from tyleri_tpu.resource.arenas import BindlessBufferAllocator
-from tyleri_tpu.resource.textures import TextureArena
+from tyleri_tpu_torch.pipeline import state
 from tyleri_tpu_torch.rendering.passes import RasterPlan
+from tyleri_tpu_torch.resource.arenas import (
+    BindlessBufferAllocator,
+    VariableLengthBuffer,
+)
+from tyleri_tpu_torch.resource.textures import TextureArena
+from tyleri_tpu_torch.scene import (
+    camera,
+    light,
+    mesh_renderer,
+    render_scene,
+    ui,
+)
+from tyleri_tpu_torch.utils import math3d
+
+
+def classes_of(*modules) -> dict:
+    """Class name -> class, for every class the modules define."""
+    return {name: c for m in modules for name, c in vars(m).items()
+            if isinstance(c, type) and c.__module__ == m.__name__}
+
+
+# what ``from_jax`` rebuilds: pipeline state, scene objects, viewports
+PORT_CLASSES = {**classes_of(state, camera, light, mesh_renderer,
+                             render_scene, ui, math3d),
+                "VariableLengthBuffer": VariableLengthBuffer}
+
+
+def convert(obj, classes: dict):
+    """``obj`` rebuilt with the classes of ``classes`` (name -> class), by
+    class name and value: an enum member by its name (its value must
+    match), a dataclass by its fields, any other instance of a named class
+    by its attributes, lists and tuples item by item.  Objects of other
+    classes (numpy arrays, numbers, arena handles) are shared as they are.
+    An enum with no counterpart in ``classes`` raises."""
+    cls = classes.get(type(obj).__name__)
+    if isinstance(obj, enum.Enum):
+        if cls is None or obj.name not in cls.__members__:
+            raise ValueError(f"no counterpart for {obj!r}")
+        member = cls[obj.name]
+        if member.value != obj.value:
+            raise ValueError(f"{obj!r} and {member!r} differ in value")
+        return member
+    if type(obj) in (list, tuple):
+        return type(obj)(convert(v, classes) for v in obj)
+    if cls is None:
+        return obj
+    if dataclasses.is_dataclass(obj):
+        return cls(**{f.name: convert(getattr(obj, f.name), classes)
+                      for f in dataclasses.fields(obj)})
+    new = cls.__new__(cls)
+    new.__dict__.update({k: convert(v, classes)
+                         for k, v in vars(obj).items()})
+    return new
+
+
+def from_jax(obj):
+    """A JAX pipeline state (``PipelineState``, ``DepthState``,
+    ``BlendState``, an enum member) or ``RenderScene`` rebuilt with the
+    port's classes."""
+    return convert(obj, PORT_CLASSES)
 
 
 def _load_arena(arena: BindlessBufferAllocator, staging: dict,

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from tyleri_tpu.pipeline.state import BlendFactor, BlendOp, BlendState
+from tyleri_tpu_torch.pipeline.state import BlendFactor, BlendOp, BlendState
 
 
 def _factor(fac: BlendFactor, src, dst, channels: slice):

@@ -14,13 +14,14 @@ from __future__ import annotations
 
 import torch
 
-from tyleri_tpu.pipeline.state import DepthFormat
+from tyleri_tpu_torch.pipeline.state import DepthFormat, lookup
 
 
 def quantize_depth(z: torch.Tensor, fmt: DepthFormat) -> torch.Tensor:
     """Clamp window depth to [0, 1] and round half to even onto the
     format's grid."""
     z = torch.clamp(z.to(torch.float32), 0.0, 1.0)
-    if fmt == DepthFormat.D32_SFLOAT:
+    if lookup({DepthFormat.D16_UNORM: False, DepthFormat.D32_SFLOAT: True},
+              fmt):
         return z
     return torch.round(z * 65535.0) / 65535.0

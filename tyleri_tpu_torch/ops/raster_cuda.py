@@ -13,13 +13,13 @@ from __future__ import annotations
 
 import torch
 
-from tyleri_tpu.pipeline.state import CompareOp, DepthFormat, DepthState
+from tyleri_tpu_torch.pipeline.state import DepthState
 from tyleri_tpu_torch import _build
 from tyleri_tpu_torch.ops import setup as S
 from tyleri_tpu_torch.ops.binning import BinnedEntries
 from tyleri_tpu_torch.ops.visibility import (
     VisibilityBuffer,
-    check_depth_state,
+    depth_flags,
     rasterize_visibility_reference,
     rasterize_visibility_stream_reference,
 )
@@ -65,7 +65,7 @@ def rasterize_visibility(binned: BinnedEntries, init_depth, scissor, *,
             depth_state=depth_state, chunk=chunk, peel2=peel2, counts=counts)
     if dev.type != "cuda":
         raise ValueError(f"rasterize_visibility: unsupported device {dev}")
-    check_depth_state(depth_state)
+    le, d16 = depth_flags(depth_state)
     P = tile_w * tile_h
     if P % 32 or P > 1024:
         raise ValueError(f"tile {tile_w}x{tile_h}: one thread per pixel "
@@ -118,8 +118,7 @@ def rasterize_visibility(binned: BinnedEntries, init_depth, scissor, *,
         fb_w, fb_h, tile_w, tile_h, grid_w, grid_h,
         *S.scissor_ints(scissor),
         E, chunk,
-        int(depth_state.compare_op == CompareOp.LESS_OR_EQUAL),
-        int(depth_state.format == DepthFormat.D16_UNORM),
+        int(le), int(d16),
         *(t.data_ptr() for t in vis),
         *(t.data_ptr() for t in vis2) if peel2 else (None,) * 7,
         nvis.data_ptr() if counts else None,

@@ -102,15 +102,19 @@ def viewport_transform(clip, viewport):
 
 def cull_keep_mask(area2, cull_mode, front_face):
     """Vulkan cull test (spec 28.8) from the y-down signed area."""
-    from tyleri_tpu.pipeline.state import CullMode, FrontFace
+    from tyleri_tpu_torch.pipeline.state import CullMode, FrontFace, lookup
 
-    if cull_mode in (None, CullMode.NONE):
+    cull = lookup({None: None, CullMode.NONE: None, CullMode.BACK: "back",
+                   CullMode.FRONT: "front",
+                   CullMode.FRONT_AND_BACK: "both"}, cull_mode)
+    if cull is None:
         return None
-    if cull_mode == CullMode.FRONT_AND_BACK:
+    if cull == "both":
         return torch.zeros(area2.shape, dtype=torch.bool, device=area2.device)
-    ccw = front_face in (None, FrontFace.COUNTER_CLOCKWISE)
+    ccw = lookup({None: True, FrontFace.COUNTER_CLOCKWISE: True,
+                  FrontFace.CLOCKWISE: False}, front_face)
     is_front = (area2 > 0) == ccw
-    return is_front if cull_mode == CullMode.BACK else ~is_front
+    return is_front if cull == "back" else ~is_front
 
 
 def zmin_slack_bound(viewport):

@@ -29,11 +29,12 @@ def reset_launches() -> None:
 
 
 def _cull_code(cull_mode, front_face):
-    from tyleri_tpu.pipeline.state import CullMode, FrontFace
+    from tyleri_tpu_torch.pipeline.state import CullMode, FrontFace, lookup
 
-    cull = {None: 0, CullMode.NONE: 0, CullMode.BACK: 1, CullMode.FRONT: 2,
-            CullMode.FRONT_AND_BACK: 3}[cull_mode]
-    return cull, int(front_face in (None, FrontFace.COUNTER_CLOCKWISE))
+    cull = lookup({None: 0, CullMode.NONE: 0, CullMode.BACK: 1,
+                   CullMode.FRONT: 2, CullMode.FRONT_AND_BACK: 3}, cull_mode)
+    return cull, int(lookup({None: True, FrontFace.COUNTER_CLOCKWISE: True,
+                             FrontFace.CLOCKWISE: False}, front_face))
 
 
 def fused_setup_reference(corners, tri_draw, tri_tex, tri_valid, mvps,

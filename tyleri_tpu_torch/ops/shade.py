@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tyleri_tpu.pipeline.state import BlendState
+from tyleri_tpu_torch.pipeline.state import BlendState
 from tyleri_tpu_torch.ops.blend import apply_blend
 from tyleri_tpu_torch.ops.sampling import sample_bilinear
 from tyleri_tpu_torch.ops.setup import viewport_floats

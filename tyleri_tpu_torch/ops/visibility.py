@@ -43,7 +43,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tyleri_tpu.pipeline.state import CompareOp, DepthFormat, DepthState
+from tyleri_tpu_torch.pipeline.state import (
+    CompareOp,
+    DepthFormat,
+    DepthState,
+    lookup,
+)
 from tyleri_tpu_torch.ops import setup as S
 from tyleri_tpu_torch.ops.binning import BinnedEntries
 
@@ -61,12 +66,16 @@ class VisibilityBuffer(NamedTuple):
     tex: torch.Tensor    # i32 [H, W] winner texture slot
 
 
+_K3_COMPARE = {op: op in (CompareOp.LESS, CompareOp.LESS_OR_EQUAL)
+               for op in CompareOp}
+_D16 = {DepthFormat.D16_UNORM: True, DepthFormat.D32_SFLOAT: False}
+
+
 def k3_supports(depth_state: DepthState) -> bool:
     """Depth test + write with LESS or LESS_OR_EQUAL: the states K3 and its
     plain versions resolve (others need exact mode)."""
-    return (depth_state.test_enable and depth_state.write_enable
-            and depth_state.compare_op in (CompareOp.LESS,
-                                           CompareOp.LESS_OR_EQUAL))
+    return (lookup(_K3_COMPARE, depth_state.compare_op)
+            and depth_state.test_enable and depth_state.write_enable)
 
 
 def check_depth_state(depth_state: DepthState) -> None:
@@ -77,22 +86,29 @@ def check_depth_state(depth_state: DepthState) -> None:
             "yet ported)")
 
 
+def depth_flags(depth_state: DepthState) -> tuple[bool, bool]:
+    """(LESS_OR_EQUAL, D16) of a depth state K3 resolves."""
+    check_depth_state(depth_state)
+    return (depth_state.compare_op == CompareOp.LESS_OR_EQUAL,
+            lookup(_D16, depth_state.format))
+
+
 def _plane(ch, row, xf, yf):
     return (ch[..., row] * xf + ch[..., row + 1] * yf) + ch[..., row + 2]
 
 
-def _quantized_z(ch, xf, yf, fmt: DepthFormat):
+def _quantized_z(ch, xf, yf, d16: bool):
     """(raw z, clamped z, quantized z) as the kernel computes them: D16
     multiplies by the f32 reciprocal of 65535, as raster_pallas.py:229
     does (ops/depth.py divides, as the JAX package's XLA path does)."""
     z = _plane(ch, S.CH_Z, xf, yf)
     zc = torch.clamp(z, 0.0, 1.0)
-    if fmt == DepthFormat.D16_UNORM:
+    if d16:
         return z, zc, torch.round(zc * 65535.0) * S.INV_D16
     return z, zc, zc
 
 
-def _fragments(ch, xf, yf, live, fmt: DepthFormat):
+def _fragments(ch, xf, yf, live, d16: bool):
     """Coverage + depth-range test of entries ch [..., 24] at pixel centers
     (xf, yf) broadcast against them; ``live`` masks pixels.  Returns
     (frag bool, zq f32)."""
@@ -103,7 +119,7 @@ def _fragments(ch, xf, yf, live, fmt: DepthFormat):
     cov = (((e0 > 0) | ((e0 == 0) & ((tl & 1) > 0)))
            & ((e1 > 0) | ((e1 == 0) & ((tl & 2) > 0)))
            & ((e2 > 0) | ((e2 == 0) & ((tl & 4) > 0))))
-    z, zc, zq = _quantized_z(ch, xf, yf, fmt)
+    z, zc, zq = _quantized_z(ch, xf, yf, d16)
     return cov & (z == zc) & live, zq
 
 
@@ -152,10 +168,8 @@ def rasterize_visibility_reference(
         depth_state: DepthState) -> VisibilityBuffer:
     """K3's resolve with no early exit (the depth test's exact answer).
     ``init_depth`` f32 [fb_h, fb_w]; scissor 4 host ints."""
-    check_depth_state(depth_state)
+    le, d16 = depth_flags(depth_state)
     dev = binned.entry_channels.device
-    le = depth_state.compare_op == CompareOp.LESS_OR_EQUAL
-    fmt = depth_state.format
     scx, scy, scw, sch = S.scissor_ints(scissor)
     npix = fb_w * fb_h
     depth0 = init_depth.reshape(npix).to(torch.float32)
@@ -171,7 +185,7 @@ def rasterize_visibility_reference(
         yf = py.to(torch.float32) + 0.5
         live = ((px < fb_w) & (py < fb_h) & (px >= scx) & (px < scx + scw)
                 & (py >= scy) & (py < scy + sch))
-        frag, zq = _fragments(ch[:, None, :], xf, yf, live, fmt)
+        frag, zq = _fragments(ch[:, None, :], xf, yf, live, d16)
         pix = torch.clamp(py, 0, fb_h - 1) * fb_w + torch.clamp(px, 0,
                                                                 fb_w - 1)
         z0 = depth0[pix]
@@ -212,7 +226,7 @@ def rasterize_visibility_reference(
     ch = all_ch[torch.clamp(owner, min=0)]
     xf = all_px[0].to(torch.float32) + 0.5
     yf = all_py[0].to(torch.float32) + 0.5
-    _, _, zq = _quantized_z(ch, xf, yf, fmt)
+    _, _, zq = _quantized_z(ch, xf, yf, d16)
     one, zero = torch.ones_like(xf), torch.zeros_like(xf)
 
     def plane_or(row, dflt):
@@ -318,12 +332,10 @@ def rasterize_visibility_stream_reference(
     ``counts`` (vis, nvis i32 [grid_h, grid_w]), where nvis counts the
     narrow entries of every chunk of ``chunk`` rows the kernel resolves
     before its early exit (raster_pallas.py:400-410,429)."""
-    check_depth_state(depth_state)
+    le, d16 = depth_flags(depth_state)
     if peel2 and counts:
         raise ValueError("peel2 does not compose with counts")
     dev = binned.entry_channels.device
-    le = depth_state.compare_op == CompareOp.LESS_OR_EQUAL
-    d16 = depth_state.format == DepthFormat.D16_UNORM
     scx, scy, scw, sch = S.scissor_ints(scissor)
     ntiles, P = grid_w * grid_h, tile_w * tile_h
 

@@ -26,8 +26,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from tyleri_tpu.device import debug
-from tyleri_tpu.pipeline.common_pipeline import CommonPipeline
+from tyleri_tpu_torch.device import debug
+from tyleri_tpu_torch.pipeline.common_pipeline import CommonPipeline
 from tyleri_tpu_torch.ops.binning import spill_rows
 from tyleri_tpu_torch.ops.setup import (
     build_triangle_table,

@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from tyleri_tpu.pipeline.state import PipelineState
+from tyleri_tpu_torch.pipeline.state import PipelineState
 from tyleri_tpu_torch.ops.binning import bin_triangles
 from tyleri_tpu_torch.ops.clip import (
     clip_work_set,

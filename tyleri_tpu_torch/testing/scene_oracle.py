@@ -1,4 +1,4 @@
-"""The numpy oracle (``tyleri_tpu.testing.oracle``) applied to a whole
+"""The numpy oracle (``testing/oracle.py``) applied to a whole
 recorded scene, for holding the port's frames to the Vulkan raster rules.
 
 ``scene_oracle_u8`` rasterizes every camera's draws in submission order,
@@ -24,8 +24,8 @@ import dataclasses
 
 import numpy as np
 
-from tyleri_tpu.pipeline.state import BlendState
-from tyleri_tpu.testing import oracle
+from tyleri_tpu_torch.pipeline.state import BlendState
+from tyleri_tpu_torch.testing import oracle
 
 CLEAR_COLOR = (0.0, 0.0, 0.0, 0.0)
 

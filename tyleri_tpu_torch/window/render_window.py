@@ -33,9 +33,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from tyleri_tpu.scene.render_scene import RenderScene
-from tyleri_tpu.utils.profiling import FrameProfiler
-from tyleri_tpu.window.swapchain import ImageViewSwapchain
+from tyleri_tpu_torch.scene.render_scene import RenderScene
+from tyleri_tpu_torch.utils.profiling import FrameProfiler
+from tyleri_tpu_torch.window.swapchain import ImageViewSwapchain
 from tyleri_tpu_torch.rendering.forward import (
     ForwardRenderingFunction,
     quantize_unorm8,
@@ -115,7 +115,7 @@ class RenderWindow:
         # (swapchain.rs:46-51); "immediate" skips the pacing
         self._pacer = None
         if self.swapchain.present_mode == "fifo":
-            from tyleri_tpu import native
+            from tyleri_tpu_torch import native
 
             self._pacer = native.FramePacer(refresh_hz)
         self.present_target = present_target
