@@ -33,11 +33,22 @@ Phases, one printed line each or more; any failure exits non-zero:
    until the near clip, the clip skip and both capacity-fit stages have
    engaged; peel2 not engaged (above the policy's triangle bound); then no
    overflow, one launch of each kernel per frame, identical images for the
-   same frame time, and the steady frame time.
+   same frame time, and the steady frame time;
+10. probes: the probe tools' entry points (tyleri_tpu_torch/tools/, the
+   port of the TPU tools P4, P7, P6 and P1) time their variants at full
+   width, each over a CUDA graph of 20 calls, with its bound (P4 beside
+   torch.index_select); then each probe kernel against its plain version,
+   bit-equal, at the tools' shapes (P4 also at the port's binning gather
+   of the sponza frame, timed beside torch.index_select and table[ids]).
 
-Every path (7, 8, 9 and the counter's measurement in 5) runs with the
-kernels' launch counts set to 0 just before it and read just after.  The
-line before the last is the kernels' JSON record; the last line is
+Every path (7, 8, 9, 10 and the counter's measurement in 5) runs with the
+kernels' launch counts set to 0 just before it and read just after.  Each
+kernel's bound is the larger of its bytes (each input read once, each
+output written once, what this run's data needs) over 3.35 TB/s and its
+f32 operations, each one instruction (the kernels build with -fmad=false),
+over 33.5 T/s, half the 67 TFLOP/s that counts an FMA as two (NVIDIA H100
+SXM).  The line before the
+last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script fails before printing either.
 """
@@ -45,13 +56,20 @@ rest of the repository beside it, the script fails before printing either.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 import warnings
 
 import numpy as np
 import torch
+
+from tyleri_tpu_torch.tools._common import (
+    bound,
+    bytes_of,
+    card_line,
+    cuda_ms,
+    graph_ms,
+)
 
 BUDGET = 0.005   # golden pixel budget (tests/test_raster_golden.py)
 # the share of pixels K3's early exit may move off the no-exit resolve: it
@@ -60,34 +78,18 @@ BUDGET = 0.005   # golden pixel budget (tests/test_raster_golden.py)
 EXIT_MOVED_MAX = 1e-5
 SPONZA_RES = (1920, 1080)
 K3 = "tyleri_tpu/ops/raster_pallas.py:78"
+# operations per unit of work, counted from the kernels' sources, for the
+# bounds: K1+K2 per triangle (csrc/fused_setup.cu's note); K3's resolve()
+# per pixel and entry: 19 f32 operations (three planes, e2, clamp, D16
+# rounding) and 10 compares, and 6 more compares for peel2's layer 2
+K1K2_OPS_PER_ROW = 300
+K3_OPS = {"base": 29, "counts": 29, "peel2": 35}
+K3_MAPS = 7        # owner, z, order, uw, vw, iw, tex: 4 bytes a pixel each
+ENTRY_BYTES = 96   # 24 f32 channels
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
-        check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` in ms, from CUDA events around ``reps``
-    back-to-back calls on the current stream."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-        enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def random_table(rng, T, D):
@@ -129,6 +131,36 @@ def max_abs_err(pairs) -> float:
         d = torch.where(torch.isnan(a) & torch.isnan(b), 0.0, d)
         err = max(err, float(d.max()) if d.numel() else 0.0)
     return err
+
+
+def bound_fields(nbytes, nops) -> dict:
+    """bound_ms and bound_by of work that moves ``nbytes`` and does
+    ``nops`` operations."""
+    b = bound(nbytes, nops)
+    return dict(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+
+
+def k3_bound(binned, depth0, visited, variant, tile_px) -> dict:
+    """K3's bound on one table: the visited narrow rows, the live broad rows
+    and their tile boxes, the tile starts and the depth buffer read once;
+    the maps (and the counter) written once; the resolve's operations for
+    every visited entry and pixel of its tile, and every broad entry and
+    pixel of its box."""
+    nb = int(binned.num_broad)
+    box = binned.broad_tiles[:nb].long()
+    broad_px = int(((box[:, 2] - box[:, 0] + 1).clamp(min=0)
+                    * (box[:, 3] - box[:, 1] + 1).clamp(min=0)).sum()) * tile_px
+    maps = K3_MAPS * (2 if variant == "peel2" else 1)
+    b = (visited * ENTRY_BYTES + nb * (ENTRY_BYTES + 16)
+         + bytes_of(binned.tile_start, depth0) + maps * depth0.numel() * 4)
+    if variant == "counts":
+        b += 4 * (binned.tile_start.numel() - 1)
+    return bound_fields(b, K3_OPS[variant] * (visited * tile_px + broad_px))
+
+
+def share(rec) -> str:
+    return (f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}, share "
+            f"{rec['bound_ms'] / rec['ms']:.1%}")
 
 
 def layers_bit_equal(a, b) -> bool:
@@ -173,7 +205,8 @@ def pass_inputs(device, rig, resolution, t):
 def binned_pass(rf, sp):
     """Setup, near clip and binning of one pass, as mesh_pass_fused runs
     them, with the spill and broad capacities grown as the frame loop
-    grows them on overflow until nothing is dropped."""
+    grows them on overflow until nothing is dropped.  Returns the table,
+    the tile dims and the setup rows the table was gathered from."""
     from tyleri_tpu_torch.ops import setup_cuda
     from tyleri_tpu_torch.ops.binning import bin_triangles, spill_rows
     from tyleri_tpu_torch.rendering.passes import (
@@ -199,7 +232,7 @@ def binned_pass(rf, sp):
             max_tiles_per_tri=plan.max_tiles_per_tri, broad_cap=broad_cap,
             spill_cap=spill_cap)
         if not int(binned.overflow):
-            return binned, dims
+            return binned, dims, su
         spill_cap, broad_cap = 2 * spill_cap, 4 * broad_cap
     raise AssertionError(f"binning overflow {int(binned.overflow)}")
 
@@ -238,10 +271,16 @@ def phase_setup(device, T, resolution, records, grid_n=420):
     plain_ms = cuda_ms(
         lambda: setup_cuda.fused_setup_reference(*args, **dims), reps=5)
     n_live = int(got[0].valid.sum())
-    records["fused_setup"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    log("k1k2", f"bit-equal on {T} random rows and {args[0].shape[0]} sponza "
+    su, _, crossed = got
+    rows = args[0].shape[0]
+    records["fused_setup"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound_fields(bytes_of(*args[:5], su.channels, su.valid, su.tile_lo,
+                              su.tile_hi, crossed), K1K2_OPS_PER_ROW * rows))
+    log("k1k2", f"bit-equal on {T} random rows and {rows} sponza "
         f"rows ({n_live} live, {int(got[1])} crossers); kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
+        f"plain {plain_ms:.4f} ms; {share(records['fused_setup'])}; no "
+        f"single PyTorch call computes it")
     return rf, sp
 
 
@@ -251,7 +290,7 @@ def phase_visibility(device, rf, sp, resolution, records):
     resolve.  Returns the table for the counter's phase."""
     from tyleri_tpu_torch.ops import raster_cuda
 
-    binned, dims = binned_pass(rf, sp)
+    binned, dims, su = binned_pass(rf, sp)
     W, H = resolution
     depth0 = torch.ones((H, W), device=device)
     kw = dict(fb_w=W, fb_h=H, depth_state=rf.mesh_state.depth, **dims)
@@ -280,13 +319,17 @@ def phase_visibility(device, rf, sp, resolution, records):
             binned, depth0, sp["scissor"], chunk=chunk, **kw), reps=1,
         warmup=0)
     records["rasterize_visibility"] = dict(max_abs_err=err, ms=ms,
-                                           plain_ms=plain_ms)
+                                           plain_ms=plain_ms, library_ms=None)
+    # the probes' yardstick: K3 timed as they are, over a CUDA graph
+    records["k3_graph_ms"] = graph_ms(lambda: raster_cuda.rasterize_visibility(
+        binned, depth0, sp["scissor"], chunk=chunk, **kw), reps=20)
     log("k3", f"bit-equal on the full {W}x{H} frame ({int(binned.num_entries)}"
         f" entries, {int(binned.num_broad)} broad, "
-        f"{int((got.owner >= 0).sum())} covered px); kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms; the early exit moved {moved} px off the "
+        f"{int((got.owner >= 0).sum())} covered px); kernel {ms:.4f} ms "
+        f"({records['k3_graph_ms']:.4f} ms by CUDA graph), plain "
+        f"{plain_ms:.4f} ms; the early exit moved {moved} px off the "
         f"no-exit resolve (bound {EXIT_MOVED_MAX * W * H:.0f})")
-    return binned, kw, depth0
+    return binned, kw, depth0, su
 
 
 def phase_counts(binned, kw, depth0, scissor, chunk, records, launches):
@@ -312,16 +355,24 @@ def phase_counts(binned, kw, depth0, scissor, chunk, records, launches):
         reps=1, warmup=0)
     err = max_abs_err([(getattr(vis, f), getattr(want, f))
                        for f in FLOAT_MAPS])
-    records["rasterize_visibility_counts"] = dict(max_abs_err=err, ms=ms,
-                                                  plain_ms=plain_ms)
     n = int(binned.num_entries)
     visited = int(nvis.sum())
+    tile_px = kw["tile_w"] * kw["tile_h"]
+    records["rasterize_visibility_counts"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **k3_bound(binned, depth0, visited, "counts", tile_px))
+    # the base variant visits the same entries (the same exit)
+    records["rasterize_visibility"].update(
+        k3_bound(binned, depth0, visited, "base", tile_px))
     seg = binned.tile_start[1:] - binned.tile_start[:-1]
     log("k3-counts", f"maps and per-tile counts equal on the sponza table; "
         f"the early exit skipped {n - visited} of {n} narrow entries "
         f"({(n - visited) / max(n, 1):.2%}) at chunk {chunk}; tiles skipping "
         f"some {int(((seg - nvis.flatten()) > 0).sum())} of {seg.numel()}; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+        f"{share(records['rasterize_visibility_counts'])}; base "
+        f"{share(records['rasterize_visibility'])}; no single PyTorch call "
+        f"computes K3")
 
 
 def peel2_check(binned, depth0, scissor, kw, what):
@@ -354,7 +405,7 @@ def phase_peel2(build_device, resolution, records, n_instances=100,
     dev = build_device()
     rf, sp = pass_inputs(dev, config4_rig(dev, resolution, n_instances),
                          resolution, 0.5)
-    binned, dims = binned_pass(rf, sp)
+    binned, dims, _ = binned_pass(rf, sp)
     W, H = resolution
     depth0 = torch.ones((H, W), device=dev.device)
     kw = dict(fb_w=W, fb_h=H, depth_state=rf.mesh_state.depth,
@@ -369,12 +420,18 @@ def phase_peel2(build_device, resolution, records, n_instances=100,
         warmup=0)
     base_ms = cuda_ms(lambda: raster_cuda.rasterize_visibility(
         binned, depth0, sp["scissor"], **kw), reps=20)
+    # the entries the layer-1 exit visits: peel2's exit, on the deeper
+    # layer, visits at least these, so the bound stays a lower bound
+    _, nvis = raster_cuda.rasterize_visibility(
+        binned, depth0, sp["scissor"], counts=True, **kw)
+    peel2_bound = k3_bound(binned, depth0, int(nvis.sum()), "peel2",
+                           dims["tile_w"] * dims["tile_h"])
     log("k3-peel2", f"both layers bit-equal on the config-4 {W}x{H} table "
         f"({int(binned.num_entries)} entries, {int((vis.owner >= 0).sum())} "
         f"px covered, {int((vis2.owner >= 0).sum())} with a layer 2, "
         f"{int(((vis2.owner < 0) & (vis2.order >= 0)).sum())} gated); "
         f"kernel {ms:.4f} ms (base variant on the same table {base_ms:.4f} "
-        f"ms), plain {plain_ms:.4f} ms")
+        f"ms), plain {plain_ms:.4f} ms; {share(dict(peel2_bound, ms=ms))}")
 
     OW, OH = overdraw_res
     rng = np.random.default_rng(7)
@@ -395,8 +452,9 @@ def phase_peel2(build_device, resolution, records, n_instances=100,
                 f"{int(table.num_broad)} broad, layer 2 at "
                 f"{float((v2.owner >= 0).float().mean()):.1%} of px, gated "
                 f"at {float(((v2.owner < 0) & (v2.order >= 0)).float().mean()):.1%}")
-    records["rasterize_visibility_peel2"] = dict(max_abs_err=err, ms=ms,
-                                                 plain_ms=plain_ms)
+    records["rasterize_visibility_peel2"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **peel2_bound)
 
 
 def render_frames(win, rig, times):
@@ -639,6 +697,171 @@ def phase_sponza(build_device, resolution, launches, grid_n=420):
         f"{covered:.1%} px covered")
 
 
+# the probe kernels, the TPU kernels they replace, and the tool variant
+# whose time stands in the kernels line
+PROBES = (
+    ("gather_rows", "tools/exp_binning.py:108", "sorted_t1m_c32"),
+    ("fixed_grid", "tools/exp_fixed_grid.py:32", "rows16_outs7_zmax"),
+    ("fixed_cost", "tools/exp_fixedcost.py:43", "empty_full"),
+    ("fill", "tools/exp_fixedcost.py:162", "launch_68x15_16x128"),
+    ("pipe_cost", "tools/exp_pipecost.py:42", "v_loop1"),
+)
+
+
+def entry_ids(table, entries):
+    """The row of ``table`` that each entry row copies bit for bit (the ids
+    binning gathered by), found by hashing the rows' bits."""
+    g = torch.Generator().manual_seed(0)
+    w = (torch.randint(1, 1 << 62, (table.shape[1],), generator=g)
+         | 1).to(table.device)
+
+    def h(x):
+        return (x.contiguous().view(torch.int32).to(torch.int64) * w).sum(1)
+
+    ht, order = torch.sort(h(table))
+    pos = torch.searchsorted(ht, h(entries)).clamp(max=ht.numel() - 1)
+    ids = order[pos].to(torch.int32)
+    if not torch.equal(table[ids.long()].view(torch.int32),
+                       entries.view(torch.int32)):
+        raise AssertionError("entry rows not found in the setup table")
+    return ids
+
+
+def check_bit_equal(what, got, want) -> float:
+    """Fails unless every output equals its plain version bit for bit;
+    returns their max_abs_err."""
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        if g.dtype != w.dtype or not torch.equal(g.view(torch.int32),
+                                                 w.view(torch.int32)):
+            bad = int((g != w).sum()) if g.shape == w.shape else g.shape
+            raise AssertionError(f"{what}: output {i} differs from its "
+                                 f"plain version ({bad})")
+    return max_abs_err(zip(got, want))
+
+
+def phase_probes(device, card, records, launches, sponza_gather, reps=20):
+    """The probe tools' entry points (their path, counted), whose times by
+    CUDA graph stand in the kernels line; then every probe kernel against
+    its plain version at full width, and the plain version's time.  Returns
+    [(kernel name, TPU kernel replaced)]."""
+    import contextlib
+    import io
+
+    from tyleri_tpu_torch.tools import (
+        exp_binning,
+        exp_fixed_grid,
+        exp_fixedcost,
+        exp_pipecost,
+    )
+
+    tools = (exp_binning, exp_fixed_grid, exp_fixedcost, exp_pipecost)
+    for tool in tools:
+        tool.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        timed = {rec["variant"]: rec for tool in tools
+                 for rec in tool.run_variants(device, reps, card)}
+    launches["probes"] = {k: v for tool in tools
+                          for k, v in tool.launches.items()}
+    for line in out.getvalue().splitlines():
+        log("probes", line.replace('"', "'"))
+    err, plain_ms = {}, {}
+
+    # P4: the tool's shapes, then the port's binning gather of sponza
+    ids, table = exp_binning.tool_inputs(device)
+    err["gather_rows"] = check_bit_equal(
+        "gather_rows", exp_binning.gather_rows(ids, table),
+        exp_binning.gather_rows_reference(ids, table))
+    plain_ms["gather_rows"] = cuda_ms(
+        lambda: exp_binning.gather_rows_reference(ids, table), reps=1)
+    stable, entries = sponza_gather
+    stable = stable.contiguous()
+    sids = entry_ids(stable, entries)
+    err["gather_rows"] = max(err["gather_rows"], check_bit_equal(
+        "gather_rows (sponza)", exp_binning.gather_rows(sids, stable),
+        exp_binning.gather_rows_reference(sids, stable)))
+    sids64 = sids.long()
+    slib_ms, sms, sms2, slib_ms2 = (graph_ms(f, reps) for f in (
+        lambda: torch.index_select(stable, 0, sids64),
+        lambda: exp_binning.gather_rows(sids, stable),
+        lambda: exp_binning.gather_rows(sids, stable),
+        lambda: torch.index_select(stable, 0, sids64)))
+    # binning's own call (ops/binning.py): advanced indexing
+    index_ms = graph_ms(lambda: stable[sids64], reps)
+    sb = dict(exp_binning.gather_bound(sids, stable), ms=(sms + sms2) / 2)
+    log("probes", f"P4 gather_rows at the sponza 1080p binning gather, "
+        f"{sids.numel()} ids in tile order into {tuple(stable.shape)} f32: "
+        f"bit-equal; by CUDA graph, kernel {sms:.4f} and {sms2:.4f} ms, "
+        f"torch.index_select {slib_ms:.4f} and {slib_ms2:.4f} ms (in turns),"
+        f" binning's table[ids] {index_ms:.4f} ms; {share(sb)}")
+    del ids, table, stable, entries, sids, sids64
+
+    # P7
+    depth = exp_fixed_grid.depth_input(device)
+    depth[::97, ::89] = 2.5   # blocks whose max adds 1.0
+    err["fixed_grid"] = max(
+        check_bit_equal(f"fixed_grid rows {rows}",
+                        exp_fixed_grid.fixed_grid(depth, rows, nouts, zmax),
+                        exp_fixed_grid.fixed_grid_reference(depth, rows,
+                                                            nouts, zmax))
+        for rows, nouts, zmax in ((16, 7, True), (128, 7, True),
+                                  (32, 3, False), (64, 1, True)))
+    plain_ms["fixed_grid"] = cuda_ms(
+        lambda: exp_fixed_grid.fixed_grid_reference(depth, 16), 5)
+
+    # P6
+    table, tiny, depth0, ts_empty = exp_fixedcost.tool_inputs(device)
+    rng = np.random.default_rng(5)
+    lens = rng.integers(0, 300, ts_empty.numel() - 1) * (
+        rng.random(ts_empty.numel() - 1) < 0.7)
+    ts_seg = torch.from_numpy(np.concatenate([[3], 3 + np.cumsum(lens)])
+                              .astype(np.int32)).to(device)
+    err["fixed_cost"] = max(
+        check_bit_equal("fixed_cost",
+                        exp_fixedcost.fixed_cost(tab, ts, depth0, n_out=n_out),
+                        exp_fixedcost.fixed_cost_reference(tab, ts, depth0,
+                                                           n_out=n_out))
+        for tab, ts, n_out in ((table, ts_empty, 7), (tiny, ts_empty, 1),
+                               (table, ts_seg, 7)))
+    plain_ms["fixed_cost"] = cuda_ms(lambda: exp_fixedcost.fixed_cost_reference(
+        table, ts_empty, depth0, n_out=7), 5)
+    err["fill"] = max(
+        check_bit_equal("fill", [exp_fixedcost.fill(*shape, device)],
+                        [exp_fixedcost.fill_reference(*shape, device)])
+        for shape in exp_fixedcost.LAUNCH_VARIANTS.values())
+    shape = exp_fixedcost.LAUNCH_VARIANTS["launch_68x15_16x128"]
+    plain_ms["fill"] = cuda_ms(
+        lambda: exp_fixedcost.fill_reference(*shape, device), 20)
+    del table, tiny, ts_seg
+
+    # P1
+    entries, ts_zero, ts_one = exp_pipecost.tool_inputs(device)
+    err["pipe_cost"] = 0.0
+    for name, kw in exp_pipecost.VARIANTS.items():
+        ts = ts_one if kw["ts"] == "one" else ts_zero
+        args = dict(nout=kw["nout"], level=kw["level"])
+        err["pipe_cost"] = max(err["pipe_cost"], check_bit_equal(
+            f"pipe_cost {name}",
+            exp_pipecost.run(entries, ts, tpp=kw["tpp"], **args),
+            exp_pipecost.pipe_cost_reference(entries, ts, **args)))
+    plain_ms["pipe_cost"] = cuda_ms(lambda: exp_pipecost.pipe_cost_reference(
+        entries, ts_one, nout=7, level=2), 2)
+
+    k3_ms = records["k3_graph_ms"]
+    for name, _, variant in PROBES:
+        r = timed[variant]
+        records[name] = dict(
+            max_abs_err=err[name], ms=r["ms"], plain_ms=plain_ms[name],
+            library_ms=r.get("library_ms"), bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"])
+        log("probes", f"{name} ({variant}): bit-equal; kernel "
+            f"{r['ms']:.4f} ms by CUDA graph, plain {plain_ms[name]:.4f} ms; "
+            f"{share(records[name])}; {r['ms'] / k3_ms:.1%} of K3's "
+            f"{k3_ms:.4f} ms by CUDA graph on the sponza table")
+    log("probes", f"launches on the tools' path {launches['probes']}")
+    return [(name, replaces) for name, replaces, _ in PROBES]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -666,17 +889,23 @@ def main() -> int:
     device = build_device().device
     records, launches = {}, {}
     rf, sp = phase_setup(build_device(), 1 << 20, SPONZA_RES, records)
-    binned, kw, depth0 = phase_visibility(device, rf, sp, SPONZA_RES,
-                                          records)
+    binned, kw, depth0, su = phase_visibility(device, rf, sp, SPONZA_RES,
+                                              records)
     phase_counts(binned, kw, depth0, sp["scissor"], rf.plan.raster.chunk,
                  records, launches)
-    del rf, sp, binned, depth0
+    # the port's binning gather of this frame, for the probes' phase
+    n = int(binned.num_entries)
+    sponza_gather = (su.channels, binned.entry_channels[:n])
+    del rf, sp, binned, depth0, su
     torch.cuda.empty_cache()
     phase_peel2(build_device, SPONZA_RES, records)
     torch.cuda.empty_cache()
     phase_small_configs(build_device, launches)
     phase_config4(build_device, SPONZA_RES, launches)
     phase_sponza(build_device, SPONZA_RES, launches)
+    torch.cuda.empty_cache()
+    probe_kernels = phase_probes(device, card, records, launches,
+                                 sponza_gather)
 
     def path_sum(key):
         return sum(c.get(key, 0) for c in launches.values())
@@ -697,7 +926,10 @@ def main() -> int:
              source="tyleri_tpu_torch/csrc/visibility.cu", replaces=K3,
              launches=path_sum("counts"),
              **records["rasterize_visibility_counts"]),
-    ]
+    ] + [dict(name=name, route="cuda",
+              source="tyleri_tpu_torch/csrc/probes.cu", replaces=replaces,
+              launches=launches["probes"][name], **records[name])
+         for name, replaces in probe_kernels]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel no path launched: {launches}")
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} "

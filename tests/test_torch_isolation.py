@@ -37,6 +37,17 @@ FRAME = textwrap.dedent("""
     win.render()
     assert win.rendering_function.plan.lit and win.flush()[..., :3].any()
     assert (setup_cuda.launches, raster_cuda.launches()) == (0, 0)
+    # every probe tool
+    import importlib, pkgutil
+    import tyleri_tpu_torch.tools as tools
+    names = [m.name for m in pkgutil.iter_modules(tools.__path__)
+             if m.name.startswith("exp_")]
+    assert len(names) == 4, names
+    for name in names:
+        importlib.import_module(f"tyleri_tpu_torch.tools.{name}")
+    # the frame profiler and the card's smoke script
+    import tyleri_tpu_torch.testing.profile_frame
+    import chip_smoke
     jax_modules = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     assert not jax_modules, jax_modules[:5]
     ours = [m for m in sys.modules

@@ -224,3 +224,76 @@ def test_wrappers_reject_bad_input(cuda_device):
             torch.zeros((1, 16), device=cuda_device), True,
             [0, 0, 8, 8, 0, 1], [0, 0, 8, 8], tile_w=8, tile_h=8,
             grid_w=1, grid_h=1)
+
+
+# ---- the probe kernels (tyleri_tpu_torch/tools/, csrc/probes.cu) ----
+
+@pytest.mark.parametrize("C,E,sort", [(32, 1 << 16, True), (24, 70_001, False)])
+def test_gather_rows_bit_equal(cuda_device, C, E, sort):
+    from tyleri_tpu_torch.tools import exp_binning
+
+    ids, table = exp_binning.tool_inputs(cuda_device, T=50_000, C=C, E=E,
+                                         sort=sort, seed=3)
+    exp_binning.reset_launches()
+    rows, sums = exp_binning.gather_rows(ids, table)
+    want_rows, want_sums = exp_binning.gather_rows_reference(ids, table)
+    torch.cuda.synchronize()
+    assert exp_binning.launches["gather_rows"] == 1
+    assert torch.equal(rows, want_rows)
+    assert torch.equal(sums.view(torch.int32), want_sums.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows,nouts,zmax", [(16, 7, True), (128, 7, True),
+                                             (32, 3, False), (64, 1, True)])
+def test_fixed_grid_bit_equal(cuda_device, rows, nouts, zmax):
+    from tyleri_tpu_torch.tools import exp_fixed_grid
+
+    depth = exp_fixed_grid.depth_input(cuda_device, seed=rows)
+    depth[::97, ::89] = 2.5   # blocks whose max adds 1.0
+    got = exp_fixed_grid.fixed_grid(depth, rows, nouts, zmax)
+    want = exp_fixed_grid.fixed_grid_reference(depth, rows, nouts, zmax)
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case,n_out", [("empty", 7), ("segments", 7),
+                                        ("segments", 1)])
+def test_fixed_cost_bit_equal(cuda_device, case, n_out):
+    from tyleri_tpu_torch.tools import exp_fixedcost
+
+    table, _, depth0, ts = exp_fixedcost.tool_inputs(cuda_device, seed=5)
+    if case == "segments":
+        rng = np.random.default_rng(5)
+        lens = rng.integers(0, 300, ts.numel() - 1) * (
+            rng.random(ts.numel() - 1) < 0.7)
+        ts = torch.from_numpy(np.concatenate([[3], 3 + np.cumsum(lens)])
+                              .astype(np.int32)).to(cuda_device)
+    depth0 = torch.rand(depth0.shape, device=cuda_device)
+    got = exp_fixedcost.fixed_cost(table, ts, depth0, n_out=n_out)
+    want = exp_fixedcost.fixed_cost_reference(table, ts, depth0, n_out=n_out)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+    for shape in exp_fixedcost.LAUNCH_VARIANTS.values():
+        assert torch.equal(exp_fixedcost.fill(*shape, cuda_device),
+                           exp_fixedcost.fill_reference(*shape, cuda_device))
+
+
+@pytest.mark.parametrize("level,nout,kind,tpp", [
+    (0, 7, "zero", 1), (1, 7, "zero", 4), (2, 7, "zero", 1),
+    (2, 7, "one", 1), (2, 3, "many", 4), (2, 1, "many", 1)])
+def test_pipe_cost_bit_equal(cuda_device, level, nout, kind, tpp):
+    from tyleri_tpu_torch.tools import exp_pipecost
+
+    entries, ts_zero, ts_one = exp_pipecost.tool_inputs(cuda_device, seed=7)
+    ts = {"zero": ts_zero, "one": ts_one}.get(kind)
+    if ts is None:   # 0 to 4 chunks, windows clamped at the table's end
+        rng = np.random.default_rng(7)
+        lens = rng.integers(0, 256, ts_zero.numel() - 1)
+        ts = torch.from_numpy(np.minimum(np.concatenate(
+            [[0], np.cumsum(lens)]), entries.shape[0]).astype(np.int32)
+        ).to(cuda_device)
+    got = exp_pipecost.run(entries, ts, nout=nout, level=level, tpp=tpp)
+    want = exp_pipecost.pipe_cost_reference(entries, ts, nout=nout,
+                                            level=level)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))

@@ -99,6 +99,17 @@ def _bind(lib) -> None:
         p,                        # nvis (counts), or null
         p,                        # stream
     ]
+    maps = [p] * 7                # up to 7 output maps, null past the last
+    lib.ty_gather_rows.restype = i
+    lib.ty_gather_rows.argtypes = [p, p, i, i, i, p, p, p]
+    lib.ty_fixed_grid.restype = i
+    lib.ty_fixed_grid.argtypes = [p, i, i, i, *maps, p]
+    lib.ty_fixed_cost.restype = i
+    lib.ty_fixed_cost.argtypes = [p, p, i, i, p, i, *maps, p]
+    lib.ty_fill.restype = i
+    lib.ty_fill.argtypes = [p, i, i, i, i, p]
+    lib.ty_pipe_cost.restype = i
+    lib.ty_pipe_cost.argtypes = [p, p, i, i, i, i, i, *maps, p]
 
 
 def load():
