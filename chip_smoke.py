@@ -5,7 +5,8 @@
 Phases, one printed line each or more; any failure exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch's device name;
-2. build: the hand-written kernels of tyleri_tpu_torch/csrc/ with nvcc;
+2. build: the hand-written kernels of tyleri_tpu_torch/csrc/ with nvcc,
+   and each kernel's registers and spill stores from ptxas's report;
 3. k1k2: K1+K2 (fused setup) against its plain PyTorch version on a
    1M-triangle random table (crossers, back faces, degenerate and
    off-screen rows) and on the sponza table: bit-equal;
@@ -35,22 +36,32 @@ Phases, one printed line each or more; any failure exits non-zero:
    overflow, one launch of each kernel per frame, identical images for the
    same frame time, and the steady frame time;
 10. probes: the probe tools' entry points (tyleri_tpu_torch/tools/, the
-   port of the TPU tools P4, P7, P6 and P1) time their variants at full
-   width, each over a CUDA graph of 20 calls, with its bound (P4 beside
-   torch.index_select); then each probe kernel against its plain version,
-   bit-equal, at the tools' shapes (P4 also at the port's binning gather
-   of the sponza frame, timed beside torch.index_select and table[ids]).
+   port of the TPU tools P4, P7, P6, P1, P3, P2 and P5) time their
+   variants at full width, each over a CUDA graph of 20 calls, with its
+   bound (P4 beside torch.index_select, P5's transpose beside
+   x.t().contiguous()); then each probe kernel against its plain version
+   at the tools' shapes: bit-equal (P4 also at the port's binning gather of
+   the sponza frame, timed beside torch.index_select and table[ids]; P3 on
+   the sponza 1080p tables of every tile height, for every variant whose
+   maps differ); P2 equal on tables whose products are exact, and on the
+   tool's table within exp_mxu.compare's tolerance, the share of pixels
+   with another winner printed.
 
 Every path (7, 8, 9, 10 and the counter's measurement in 5) runs with the
 kernels' launch counts set to 0 just before it and read just after.  Each
-kernel's bound is the larger of its bytes (each input read once, each
-output written once, what this run's data needs) over 3.35 TB/s and its
-f32 operations, each one instruction (the kernels build with -fmad=false),
-over 33.5 T/s, half the 67 TFLOP/s that counts an FMA as two (NVIDIA H100
-SXM).  The line before the
-last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-rest of the repository beside it, the script fails before printing either.
+kernel's bound is the largest of its bytes (each input read once, each
+output written once, what this run's data needs) over 3.35 TB/s, its f32
+operations on the CUDA cores, each one instruction (the kernels build with
+-fmad=false), over 33.5 T/s, half the 67 TFLOP/s that counts an FMA as
+two, and its tensor-core flops over 989 TFLOP/s (bf16) or a third of 495
+(TF32, three passes for f32 accuracy) (NVIDIA H100 SXM); the kernels line
+says "operations" for either kind of operation, and its bound_kind says
+which of the three ("bytes", "operations" or "tensor") the bound is.
+Each phase prints its time.  The last three lines are the card (nvidia-smi's name and power
+limit), the kernels' JSON record (each kernel's share is its bound over
+its time) and ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the rest of the repository beside it,
+the script fails before printing any of them.
 """
 
 from __future__ import annotations
@@ -133,11 +144,14 @@ def max_abs_err(pairs) -> float:
     return err
 
 
-def bound_fields(nbytes, nops) -> dict:
-    """bound_ms and bound_by of work that moves ``nbytes`` and does
-    ``nops`` operations."""
-    b = bound(nbytes, nops)
-    return dict(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+def bound_fields(b) -> dict:
+    """The kernels line's fields of a bound (``tools/_common.bound``):
+    bound_ms, bound_by ("bytes" or "operations") and bound_kind, which says
+    which operations ("bytes", "operations" on the CUDA cores or "tensor"
+    core flops)."""
+    return dict(bound_ms=b["bound_ms"], bound_kind=b["bound_by"],
+                bound_by="bytes" if b["bound_by"] == "bytes" else
+                "operations")
 
 
 def k3_bound(binned, depth0, visited, variant, tile_px) -> dict:
@@ -155,11 +169,13 @@ def k3_bound(binned, depth0, visited, variant, tile_px) -> dict:
          + bytes_of(binned.tile_start, depth0) + maps * depth0.numel() * 4)
     if variant == "counts":
         b += 4 * (binned.tile_start.numel() - 1)
-    return bound_fields(b, K3_OPS[variant] * (visited * tile_px + broad_px))
+    return bound_fields(bound(b, K3_OPS[variant]
+                              * (visited * tile_px + broad_px)))
 
 
 def share(rec) -> str:
-    return (f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}, share "
+    by = rec.get("bound_kind", rec["bound_by"])
+    return (f"bound {rec['bound_ms']:.4f} ms by {by}, share "
             f"{rec['bound_ms'] / rec['ms']:.1%}")
 
 
@@ -275,8 +291,9 @@ def phase_setup(device, T, resolution, records, grid_n=420):
     rows = args[0].shape[0]
     records["fused_setup"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        **bound_fields(bytes_of(*args[:5], su.channels, su.valid, su.tile_lo,
-                              su.tile_hi, crossed), K1K2_OPS_PER_ROW * rows))
+        **bound_fields(bound(
+            bytes_of(*args[:5], su.channels, su.valid, su.tile_lo,
+                     su.tile_hi, crossed), K1K2_OPS_PER_ROW * rows)))
     log("k1k2", f"bit-equal on {T} random rows and {rows} sponza "
         f"rows ({n_live} live, {int(got[1])} crossers); kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms; {share(records['fused_setup'])}; no "
@@ -697,14 +714,28 @@ def phase_sponza(build_device, resolution, launches, grid_n=420):
         f"{covered:.1%} px covered")
 
 
-# the probe kernels, the TPU kernels they replace, and the tool variant
-# whose time stands in the kernels line
+# the probe kernels, the TPU kernels they replace, the tool and variant
+# whose time stands in the kernels line, and the kernel's source in csrc/
 PROBES = (
-    ("gather_rows", "tools/exp_binning.py:108", "sorted_t1m_c32"),
-    ("fixed_grid", "tools/exp_fixed_grid.py:32", "rows16_outs7_zmax"),
-    ("fixed_cost", "tools/exp_fixedcost.py:43", "empty_full"),
-    ("fill", "tools/exp_fixedcost.py:162", "launch_68x15_16x128"),
-    ("pipe_cost", "tools/exp_pipecost.py:42", "v_loop1"),
+    ("gather_rows", "tools/exp_binning.py:108", "exp_binning",
+     "sorted_t1m_c32", "probes.cu"),
+    ("fixed_grid", "tools/exp_fixed_grid.py:32", "exp_fixed_grid",
+     "rows16_outs7_zmax", "probes.cu"),
+    ("fixed_cost", "tools/exp_fixedcost.py:43", "exp_fixedcost",
+     "empty_full", "probes.cu"),
+    ("fill", "tools/exp_fixedcost.py:162", "exp_fixedcost",
+     "launch_68x15_16x128", "probes.cu"),
+    ("pipe_cost", "tools/exp_pipecost.py:42", "exp_pipecost", "v_loop1",
+     "probes.cu"),
+    ("visibility_variant", "tools/exp_visibility.py:30", "exp_visibility",
+     "base", "probes_visibility.cu"),
+    ("visibility_packed", "tools/exp_visibility.py:580", "exp_visibility",
+     "packed5", "probes_visibility.cu"),
+    ("mxu", "tools/exp_mxu.py:49", "exp_mxu", "fat4_hst", "probes_mxu.cu"),
+    ("transpose_rows", "tools/exp_mosaic_probe.py:26", "exp_mosaic_probe",
+     "transpose", "probes.cu"),
+    ("field_compute", "tools/exp_mosaic_probe.py:53", "exp_mosaic_probe",
+     "compute", "probes.cu"),
 )
 
 
@@ -739,11 +770,14 @@ def check_bit_equal(what, got, want) -> float:
     return max_abs_err(zip(got, want))
 
 
-def phase_probes(device, card, records, launches, sponza_gather, reps=20):
+def phase_probes(device, card, records, launches, sponza_gather, reps=20,
+                 vis_size=((1920, 1080), 420), mxu_grid=None):
     """The probe tools' entry points (their path, counted), whose times by
     CUDA graph stand in the kernels line; then every probe kernel against
-    its plain version at full width, and the plain version's time.  Returns
-    [(kernel name, TPU kernel replaced)]."""
+    its plain version at full width, and the plain version's time
+    (``vis_size``, P3's frame and sponza grid, and ``mxu_grid``, P2's
+    tiles, are smaller in a rehearsal on the CPU).  Returns [(kernel name,
+    TPU kernel replaced)]."""
     import contextlib
     import io
 
@@ -751,16 +785,24 @@ def phase_probes(device, card, records, launches, sponza_gather, reps=20):
         exp_binning,
         exp_fixed_grid,
         exp_fixedcost,
+        exp_mosaic_probe,
+        exp_mxu,
         exp_pipecost,
+        exp_visibility,
     )
 
-    tools = (exp_binning, exp_fixed_grid, exp_fixedcost, exp_pipecost)
+    tools = (exp_binning, exp_fixed_grid, exp_fixedcost, exp_pipecost,
+             exp_visibility, exp_mxu, exp_mosaic_probe)
+    vis_tables = exp_visibility.Tables(device, *vis_size)  # sponza, binned
+    extra = {exp_visibility: dict(tables=vis_tables),
+             exp_mxu: dict(grid=mxu_grid)}
     for tool in tools:
         tool.reset_launches()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        timed = {rec["variant"]: rec for tool in tools
-                 for rec in tool.run_variants(device, reps, card)}
+        timed = {(rec["tool"], rec["variant"]): rec for tool in tools
+                 for rec in tool.run_variants(device, reps, card,
+                                              **extra.get(tool, {}))}
     launches["probes"] = {k: v for tool in tools
                           for k, v in tool.launches.items()}
     for line in out.getvalue().splitlines():
@@ -847,19 +889,84 @@ def phase_probes(device, card, records, launches, sponza_gather, reps=20):
     plain_ms["pipe_cost"] = cuda_ms(lambda: exp_pipecost.pipe_cost_reference(
         entries, ts_one, nout=7, level=2), 2)
 
+    # P3: every variant whose maps differ, on the sponza tables
+    for name in exp_visibility.RESULT_DISTINCT:
+        key = "visibility_packed" if "packed" in name else \
+            "visibility_variant"
+        table, ts, kw, _, _ = vis_tables.inputs(name)
+        got = vis_tables.run(name, table, ts, kw)
+        want = vis_tables.reference(name, table, ts, kw)
+        err[key] = max(err.get(key, 0.0), check_bit_equal(
+            f"P3 {name}", [*got[0], got[1]], [*want[0], want[1]]))
+    for name, key in (("base", "visibility_variant"),
+                      ("packed5", "visibility_packed")):
+        table, ts, kw, _, _ = vis_tables.inputs(name)
+        plain_ms[key] = cuda_ms(lambda: vis_tables.reference(
+            name, table, ts, kw), reps=1, warmup=0)
+    log("probes", f"P3 bit-equal (maps and resolved counts) on the sponza "
+        f"1080p tables for {', '.join(exp_visibility.RESULT_DISTINCT)}")
+    del vis_tables, table, got, want
+
+    # P2: exact tables (every variant equal), then the tool's table
+    ent, ts, grid = exp_mxu.tool_inputs(device, grid=mxu_grid)
+    exact = {split: exp_mxu.exact_inputs(device, grid=grid, split=split)
+             for split in (False, True)}
+    err["mxu"], shares = 0.0, {}
+    for name in exp_mxu.VARIANTS:
+        opts = exp_mxu.options(name)
+        kw = dict(grid=grid, grid_w=exp_mxu.grid_dims(16)[0], chunk=128,
+                  **opts)
+        e_ent, e_ts = exact[opts["split"]]
+        if not torch.equal(exp_mxu.run_mxu(e_ent, e_ts, **kw),
+                           exp_mxu.mxu_reference(e_ent, e_ts, **kw)):
+            raise AssertionError(f"P2 {name} differs from its plain version "
+                                 "on the exact table")
+        shares[name], e = exp_mxu.compare(
+            exp_mxu.run_mxu(ent, ts, **kw),
+            exp_mxu.mxu_reference(ent, ts, **kw), ent, opts, 2)
+        if shares[name] > exp_mxu.MAX_DIFFERING:
+            raise AssertionError(f"P2 {name}: {shares[name]:.3%} of pixels "
+                                 f"beyond the tolerance (limit "
+                                 f"{exp_mxu.MAX_DIFFERING:.1%})")
+        err["mxu"] = max(err["mxu"], e)
+    hst = dict(grid=grid, grid_w=exp_mxu.grid_dims(16)[0], chunk=128,
+               **exp_mxu.options("fat4_hst"))
+    plain_ms["mxu"] = cuda_ms(lambda: exp_mxu.mxu_reference(ent, ts, **hst),
+                              reps=1, warmup=0)
+    log("probes", f"P2 equal on the exact tables for every variant; on the "
+        f"tool's table the share of pixels with another winner or beyond "
+        f"the tolerance: " + ", ".join(f"{k} {v:.4%}"
+                                       for k, v in shares.items())
+        + f"; max |diff| of the others {err['mxu']:.3g}")
+    del ent, ts, exact
+
+    # P5 at the tool's 2^20 rows
+    x_t, x_c = exp_mosaic_probe.tool_inputs(device)
+    x_r = torch.randn(x_c.shape, device=device)
+    err["transpose_rows"] = check_bit_equal(
+        "P5 transpose", [exp_mosaic_probe.transpose(x_t)],
+        [exp_mosaic_probe.transpose_reference(x_t)])
+    err["field_compute"] = check_bit_equal(
+        "P5 compute", [exp_mosaic_probe.compute(x_r)],
+        [exp_mosaic_probe.compute_reference(x_r)])
+    plain_ms["transpose_rows"] = cuda_ms(
+        lambda: exp_mosaic_probe.transpose_reference(x_t), 5)
+    plain_ms["field_compute"] = cuda_ms(
+        lambda: exp_mosaic_probe.compute_reference(x_r), 5)
+
     k3_ms = records["k3_graph_ms"]
-    for name, _, variant in PROBES:
-        r = timed[variant]
+    for name, _, tool, variant, _ in PROBES:
+        r = timed[(tool, variant)]
         records[name] = dict(
             max_abs_err=err[name], ms=r["ms"], plain_ms=plain_ms[name],
-            library_ms=r.get("library_ms"), bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"])
-        log("probes", f"{name} ({variant}): bit-equal; kernel "
+            library_ms=r.get("library_ms"), **bound_fields(r))
+        log("probes", f"{name} ({variant}): checked; kernel "
             f"{r['ms']:.4f} ms by CUDA graph, plain {plain_ms[name]:.4f} ms; "
             f"{share(records[name])}; {r['ms'] / k3_ms:.1%} of K3's "
             f"{k3_ms:.4f} ms by CUDA graph on the sponza table")
     log("probes", f"launches on the tools' path {launches['probes']}")
-    return [(name, replaces) for name, replaces, _ in PROBES]
+    return [(name, replaces, source) for name, replaces, _, _, source
+            in PROBES]
 
 
 def main() -> int:
@@ -881,31 +988,41 @@ def main() -> int:
     _build.load()
     log("build", f"kernels built and loaded in {time.perf_counter() - t0:.1f}"
         f" s ({_build.library_path()})")
+    log("build", "registers (spill-store bytes) by ptxas: " + "; ".join(
+        f"{k} {r} ({s} B)"
+        for k, (r, s) in sorted(_build.kernel_resources().items())))
 
     def build_device(callback=None):
         b = RenderDeviceBuilder().validation_level(ValidationLevel.WARNING)
         return b.debug_callback(callback).build()
 
+    def phase(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        log("time", f"{name} {time.perf_counter() - t:.1f} s")
+        return out
+
     device = build_device().device
     records, launches = {}, {}
-    rf, sp = phase_setup(build_device(), 1 << 20, SPONZA_RES, records)
-    binned, kw, depth0, su = phase_visibility(device, rf, sp, SPONZA_RES,
-                                              records)
-    phase_counts(binned, kw, depth0, sp["scissor"], rf.plan.raster.chunk,
-                 records, launches)
+    rf, sp = phase("k1k2", phase_setup, build_device(), 1 << 20, SPONZA_RES,
+                   records)
+    binned, kw, depth0, su = phase("k3", phase_visibility, device, rf, sp,
+                                   SPONZA_RES, records)
+    phase("k3-counts", phase_counts, binned, kw, depth0, sp["scissor"],
+          rf.plan.raster.chunk, records, launches)
     # the port's binning gather of this frame, for the probes' phase
     n = int(binned.num_entries)
     sponza_gather = (su.channels, binned.entry_channels[:n])
     del rf, sp, binned, depth0, su
     torch.cuda.empty_cache()
-    phase_peel2(build_device, SPONZA_RES, records)
+    phase("k3-peel2", phase_peel2, build_device, SPONZA_RES, records)
     torch.cuda.empty_cache()
-    phase_small_configs(build_device, launches)
-    phase_config4(build_device, SPONZA_RES, launches)
-    phase_sponza(build_device, SPONZA_RES, launches)
+    phase("configs 1-3", phase_small_configs, build_device, launches)
+    phase("config4", phase_config4, build_device, SPONZA_RES, launches)
+    phase("config5", phase_sponza, build_device, SPONZA_RES, launches)
     torch.cuda.empty_cache()
-    probe_kernels = phase_probes(device, card, records, launches,
-                                 sponza_gather)
+    probe_kernels = phase("probes", phase_probes, device, card, records,
+                          launches, sponza_gather)
 
     def path_sum(key):
         return sum(c.get(key, 0) for c in launches.values())
@@ -927,15 +1044,17 @@ def main() -> int:
              launches=path_sum("counts"),
              **records["rasterize_visibility_counts"]),
     ] + [dict(name=name, route="cuda",
-              source="tyleri_tpu_torch/csrc/probes.cu", replaces=replaces,
+              source=f"tyleri_tpu_torch/csrc/{source}", replaces=replaces,
               launches=launches["probes"][name], **records[name])
-         for name, replaces in probe_kernels]
+         for name, replaces, source in probe_kernels]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel no path launched: {launches}")
+    for k in kernels:
+        k["share"] = k["bound_ms"] / k["ms"]
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} "
         f"s; launches per path {launches}")
-    print(json.dumps({"kernels": kernels}))
     print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

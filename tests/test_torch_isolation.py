@@ -42,7 +42,7 @@ FRAME = textwrap.dedent("""
     import tyleri_tpu_torch.tools as tools
     names = [m.name for m in pkgutil.iter_modules(tools.__path__)
              if m.name.startswith("exp_")]
-    assert len(names) == 4, names
+    assert len(names) == 7, names
     for name in names:
         importlib.import_module(f"tyleri_tpu_torch.tools.{name}")
     # the frame profiler and the card's smoke script

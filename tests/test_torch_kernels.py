@@ -22,6 +22,7 @@ from tyleri_tpu_torch.ops.visibility import (
     rasterize_visibility_stream_reference,
 )
 from tyleri_tpu_torch.testing.overdraw import overdraw_table
+from tyleri_tpu_torch.tools import exp_mxu
 
 pytestmark = pytest.mark.cuda
 
@@ -297,3 +298,129 @@ def test_pipe_cost_bit_equal(cuda_device, level, nout, kind, tpp):
                                             level=level)
     for g, w in zip(got, want, strict=True):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+# ---- P3, P2, P5 (csrc/probes_visibility.cu, probes_mxu.cu, probes.cu) ----
+
+def p3_inputs(device, tile_h, seed=5):
+    """The CPU tests' snapped random table and segments."""
+    from torch_probe_tables import FB_H, FB_W, inputs
+
+    tab, ts, depth0, _, _ = inputs(seed, tile_h)
+    t = [torch.from_numpy(a).to(device) for a in (tab, ts, depth0)]
+    return (*t, (0, 0, FB_W, FB_H))
+
+
+P3_CASES = {
+    "base": {}, "lex": dict(lex=True), "exit": dict(exit=True),
+    "exit2": dict(exit=True, lag2=True), "strip": dict(strip_attrs=True),
+    "hoist": dict(hoist_loads=True),
+    "hoist_strip": dict(hoist_loads=True, strip_attrs=True),
+    "e2stored": dict(exit=True, e2_stored=True),
+    "chunk256": dict(chunk=256), "c512": dict(chunk=512),
+    "th8": dict(tile_h=8), "th32": dict(tile_h=32),
+    "th64c256": dict(tile_h=64, chunk=256), "unroll8": dict(unroll=8),
+    "th32u2": dict(tile_h=32, chunk=256, unroll=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(P3_CASES))
+def test_probe_visibility_variant_bit_equal(cuda_device, case):
+    from tyleri_tpu_torch.tools import exp_visibility as V
+
+    kw = dict(P3_CASES[case])
+    tile_h = kw.get("tile_h", 16)
+    table, ts, depth0, scissor = p3_inputs(cuda_device, tile_h)
+    if kw.get("e2_stored"):
+        table = V.refill_e2(table)
+    V.reset_launches()
+    got, nres = V.run_variant(table, ts, depth0, scissor, **kw)
+    grid_w, grid_h = V.grid_of(depth0.shape[1], depth0.shape[0], tile_h)
+    want, want_nres = V.variant_reference(
+        table, ts, depth0, scissor, tile_h=tile_h, grid_w=grid_w,
+        grid_h=grid_h, chunk=kw.get("chunk", 128),
+        **{k: v for k, v in kw.items()
+           if k not in ("tile_h", "chunk", "unroll")})
+    torch.cuda.synchronize()
+    assert V.launches["visibility_variant"] == 1
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and torch.equal(
+            g.view(torch.int32), w.view(torch.int32))
+    assert torch.equal(nres, want_nres)
+
+
+@pytest.mark.parametrize("exit,lag2", [(True, False), (False, False),
+                                       (True, True)])
+def test_probe_visibility_packed_bit_equal(cuda_device, exit, lag2):
+    from tyleri_tpu_torch.tools import exp_visibility as V
+
+    table, ts, depth0, scissor = p3_inputs(cuda_device, 16, seed=11)
+    packed = V.pack5(table)
+    got, nres = V.run_packed(packed, ts, depth0, scissor, exit=exit,
+                             lag2=lag2)
+    grid_w, grid_h = V.grid_of(depth0.shape[1], depth0.shape[0], 16)
+    want, want_nres = V.packed_reference(packed, ts, depth0, scissor,
+                                         tile_h=16, grid_w=grid_w,
+                                         grid_h=grid_h, exit=exit, lag2=lag2)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert torch.equal(nres, want_nres)
+
+
+# every variant, at both precisions where the layout has a choice (split
+# is bf16 by construction)
+MXU_PRECISIONS = [(name, prec) for name, opts in exp_mxu.VARIANTS.items()
+                  for prec in ((None,) if opts.get("split")
+                               else ("default", "highest"))]
+
+
+@pytest.mark.parametrize("name,precision", MXU_PRECISIONS)
+def test_probe_mxu_equal_on_exact_inputs(cuda_device, name, precision):
+    """Every product and partial sum of the exact table is exact, so the
+    tensor cores equal the plain version whatever their order of sums
+    (values: a zero's sign aside)."""
+    from tyleri_tpu_torch.tools import exp_mxu as M
+
+    opts = M.options(name)
+    if precision:
+        opts["precision"] = precision
+    grid = 40
+    ent, ts = M.exact_inputs(cuda_device, grid=grid, seg=240,
+                             split=opts["split"])
+    kw = dict(grid=grid, grid_w=M.grid_dims(16)[0], chunk=128, **opts)
+    M.reset_launches()
+    got = M.run_mxu(ent, ts, **kw)
+    want = M.mxu_reference(ent, ts, **kw)
+    torch.cuda.synchronize()
+    assert M.launches["mxu"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["mm7_hst", "red", "full", "fatfullc",
+                                  "fatsplitfullc", "fat4_def"])
+def test_probe_mxu_close_on_the_tools_inputs(cuda_device, name):
+    """On the tool's normal table the planes round their sums in other
+    orders: within exp_mxu.compare's tolerance, at most 1 pixel in 10^3
+    with another winner."""
+    from tyleri_tpu_torch.tools import exp_mxu as M
+
+    opts = M.options(name)
+    ent, ts, grid = M.tool_inputs(cuda_device, grid=60)
+    kw = dict(grid=grid, grid_w=M.grid_dims(16)[0], chunk=128, **opts)
+    share, _ = M.compare(M.run_mxu(ent, ts, **kw),
+                         M.mxu_reference(ent, ts, **kw), ent, opts, 2)
+    assert share <= M.MAX_DIFFERING
+
+
+def test_probe_mosaic_bit_equal(cuda_device):
+    from tyleri_tpu_torch.tools import exp_mosaic_probe as P5
+
+    x_t, x_c = P5.tool_inputs(cuda_device)
+    x_c = torch.randn(x_c.shape, device=cuda_device)
+    got_t, got_c = P5.transpose(x_t), P5.compute(x_c)
+    torch.cuda.synchronize()
+    assert torch.equal(got_t, P5.transpose_reference(x_t))
+    assert torch.equal(got_c.view(torch.int32),
+                       P5.compute_reference(x_c).view(torch.int32))
+    P5.check_tool_asserts(x_t, got_t, P5.compute(torch.ones_like(x_c)))

@@ -29,7 +29,10 @@ from tyleri_tpu_torch.tools import (
     exp_binning,
     exp_fixed_grid,
     exp_fixedcost,
+    exp_mosaic_probe,
+    exp_mxu,
     exp_pipecost,
+    exp_visibility,
 )
 
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(
@@ -242,25 +245,34 @@ def test_pipe_cost_matches_the_tpu_kernel(level, nout, kind, tpp):
 
 # ---------------------------------------------------------------- entry points
 
+# the tools whose full width is a sponza frame or a 1080p grid of tables
+# run here at a reduced size (their docstrings' options)
+SMALL = {exp_visibility: ["--grid-n", "8", "--resolution", "128x32"],
+         exp_mxu: ["--grid", "3", "--tile-h", "8", "--seg", "240"]}
+
+
 @pytest.mark.parametrize("tool", [exp_binning, exp_fixed_grid, exp_fixedcost,
-                                  exp_pipecost])
+                                  exp_pipecost, exp_visibility, exp_mxu,
+                                  exp_mosaic_probe])
 def test_entry_point_needs_a_card_or_cpu(tool, capsys, monkeypatch):
     """Without a card the tool raises; with --device cpu it runs the plain
-    versions at full width and prints one JSON line per variant, with a
-    host time and no device time."""
+    versions (at full width, or at the reduced size of ``SMALL``) and
+    prints one JSON line per variant, with a host time and no device
+    time."""
     import json
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         tool.main([])
     tool.reset_launches()
-    assert tool.main(["--device", "cpu", "--reps", "1"]) == 0
+    assert tool.main(["--device", "cpu", "--reps", "1",
+                      *SMALL.get(tool, [])]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert len(lines) == len(tool.VARIANTS) + len(
-        getattr(tool, "LAUNCH_VARIANTS", {}))
+        getattr(tool, "LAUNCH_VARIANTS", {})) + (tool is exp_mxu)
     for rec in lines:
         assert rec["device"] == "cpu" and rec["card"] is None
         assert "ms" not in rec and rec["host_ms"] > 0
-        assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes",
-                                                           "operations")
+        assert rec["bound_ms"] > 0 and rec["bound_by"] in (
+            "bytes", "operations", "tensor")
     assert not any(tool.launches.values())

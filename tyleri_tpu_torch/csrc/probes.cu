@@ -40,6 +40,18 @@
 //     with cp.async, adding c0 * xf * (1/(i+1)) + yf * 0 + (outside the
 //     scissor) to map i per chunk, c0 the chunk's first scalar.
 //
+// P5  transpose_rows   replaces tools/exp_mosaic_probe.py: transpose_kernel
+//     [24, N] -> [N, 24] f32.  A block stages 256 columns of all 24 rows in
+//     shared memory (reads coalesced along N), then writes its 256 x 24
+//     output rows as one contiguous run (writes coalesced), the tile's row
+//     stride padded to 257 so neither side conflicts on a bank.  Bound:
+//     bytes (N * 24 * 4 read and written once).  Left for a redesign: 16-byte
+//     stores, and whether a producer should emit [N, 24] directly.
+//     field_compute    replaces tools/exp_mosaic_probe.py: compute_kernel
+//     out[n, c] = x[c % 16, n] * 2 + c for x [16, N] (the tool's [16,
+//     N / 128, 128]), row-major [N, 24]: the same staging, 16 rows in and 24
+//     values out per column.  Bound: bytes (16 N and 24 N floats).
+//
 // Numerics: built with -fmad=false (no contraction), so each expression is
 // rounded as the plain versions round it.
 
@@ -274,7 +286,48 @@ cudaError_t launch_pipe(int nout, dim3 grid, dim3 block, size_t smem,
     return cudaSuccess;
 }
 
+// ---------------------------------------------------------------- P5
+
+constexpr int T_COLS = 256;        // columns (output rows) per block
+constexpr int T_STRIDE = T_COLS + 1;
+constexpr int T_THREADS = 256;
+
+// ROWS input rows of x [ROWS, N]; out [N, 24] with
+// out[n, c] = COMPUTE ? x[c % 16, n] * 2 + c : x[c, n] (ROWS == 24)
+template <int ROWS, bool COMPUTE>
+__global__ void rows_to_cols_kernel(const float* __restrict__ x, int N,
+                                    float* __restrict__ out) {
+    __shared__ float tile[ROWS * T_STRIDE];
+    const int n0 = blockIdx.x * T_COLS;
+    const int ncols = min(T_COLS, N - n0);
+    for (int e = threadIdx.x; e < ROWS * T_COLS; e += blockDim.x) {
+        const int r = e / T_COLS, j = e - r * T_COLS;
+        if (j < ncols) tile[r * T_STRIDE + j] = x[(size_t)r * N + n0 + j];
+    }
+    __syncthreads();
+    float* dst = out + (size_t)n0 * 24;
+    for (int e = threadIdx.x; e < ncols * 24; e += blockDim.x) {
+        const int j = e / 24, c = e - j * 24;
+        if constexpr (COMPUTE)
+            dst[e] = tile[(c % 16) * T_STRIDE + j] * 2.0f + (float)c;
+        else
+            dst[e] = tile[c * T_STRIDE + j];
+    }
+}
+
 }  // namespace
+
+extern "C" int ty_transpose_rows(const float* x, int N, int compute,
+                                 float* out, void* stream) {
+    if (N <= 0) return (int)cudaErrorInvalidValue;
+    const dim3 grid((N + T_COLS - 1) / T_COLS), block(T_THREADS);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (compute)
+        rows_to_cols_kernel<16, true><<<grid, block, 0, st>>>(x, N, out);
+    else
+        rows_to_cols_kernel<24, false><<<grid, block, 0, st>>>(x, N, out);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int ty_gather_rows(const int* ids, const float* table, int T,
                               int C, int E, float* out, float* sums,

@@ -12,13 +12,16 @@ import time
 import torch
 
 
-def parse(argv, doc: str) -> argparse.Namespace:
+def parse(argv, doc: str, extra=None) -> argparse.Namespace:
+    """--device and --reps; ``extra(parser)`` adds a tool's own options."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda (the kernels, the default) or cpu (the plain "
                          "versions)")
     ap.add_argument("--reps", type=int, default=20,
                     help="timed calls per variant")
+    if extra is not None:
+        extra(ap)
     return ap.parse_args(argv)
 
 
@@ -114,15 +117,24 @@ HBM_BYTES_PER_S = 3.35e12
 # compare is an instruction of its own, and the card issues half as many
 # of those a second.
 F32_INSTR_PER_S = 67e12 / 2
+# tensor cores, dense: bf16 (and fp16) and TF32 products
+TC_BF16_FLOPS = 989e12
+TC_TF32_FLOPS = 495e12
 
 
-def bound(nbytes: float, nops: float) -> dict:
+def bound(nbytes: float, nops: float, tc_flops: float = 0.0,
+          tc_peak: float = TC_BF16_FLOPS) -> dict:
     """The least time the card could take for work that moves ``nbytes``
-    (each input read once, each output written once) and does ``nops`` f32
-    operations, each one instruction: the larger of the two times, and
-    which one it is."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_INSTR_PER_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=int(nbytes), ops=int(nops))
+    (each input read once, each output written once), does ``nops`` f32
+    operations on the CUDA cores, each one instruction, and ``tc_flops``
+    tensor-core flops at ``tc_peak`` a second: the largest of the three
+    times, and which one it is ("bytes", "operations" or "tensor")."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": nops / F32_INSTR_PER_S * 1e3,
+             "tensor": tc_flops / tc_peak * 1e3}
+    by = max(times, key=times.get)
+    out = dict(bound_ms=times[by], bound_by=by, bytes=int(nbytes),
+               ops=int(nops))
+    if tc_flops:
+        out["tc_flops"] = int(tc_flops)
+    return out
