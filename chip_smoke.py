@@ -11,9 +11,10 @@ Phases, one printed line each or more; any failure exits non-zero:
    1M-triangle random table (crossers, back faces, degenerate and
    off-screen rows) and on the sponza table: bit-equal;
 4. k3: K3 (visibility resolve, base variant) against its plain version on
-   the binned table of one sponza frame at 1920x1080: bit-equal; and the
+   the binned table of one sponza frame at 1920x1080: bit-equal; the
    pixels its early exit moved off the no-exit resolve, at most
-   EXIT_MOVED_MAX of the frame;
+   EXIT_MOVED_MAX of the frame; its time on the same table emptied (K3's
+   floor);
 5. k3-counts: K3's visit counter on the same table, against the stream
    plain version: equal maps and equal counts per tile; the share of narrow
    entries the early exit skipped;
@@ -57,9 +58,12 @@ two, and its tensor-core flops over 989 TFLOP/s (bf16) or a third of 495
 (TF32, three passes for f32 accuracy) (NVIDIA H100 SXM); the kernels line
 says "operations" for either kind of operation, and its bound_kind says
 which of the three ("bytes", "operations" or "tensor") the bound is.
-Each phase prints its time.  The last three lines are the card (nvidia-smi's name and power
-limit), the kernels' JSON record (each kernel's share is its bound over
-its time) and ``{"ok": true, "device": {...}}``.
+Every kernel's time in the record is by CUDA events around a CUDA graph of
+20 calls (``graph_ms``), so a wrapper's host cost drops out; K1-K3 are also
+timed back to back (``back_to_back_ms``).  Each phase prints its time.  The
+last three lines are the card (nvidia-smi's name and power limit), the
+kernels' JSON record (each kernel's share is its bound over its time) and
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script fails before printing any of them.
 """
@@ -284,20 +288,23 @@ def phase_setup(device, T, resolution, records, grid_n=420):
         raise AssertionError("fused_setup differs from its plain version on "
                              "the sponza table")
     ms = cuda_ms(lambda: setup_cuda.fused_setup(*args, **dims), reps=20)
+    g_ms = graph_ms(lambda: setup_cuda.fused_setup(*args, **dims), reps=20)
     plain_ms = cuda_ms(
         lambda: setup_cuda.fused_setup_reference(*args, **dims), reps=5)
     n_live = int(got[0].valid.sum())
     su, _, crossed = got
     rows = args[0].shape[0]
     records["fused_setup"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        max_abs_err=err, ms=g_ms, back_to_back_ms=ms, plain_ms=plain_ms,
+        library_ms=None,
         **bound_fields(bound(
             bytes_of(*args[:5], su.channels, su.valid, su.tile_lo,
                      su.tile_hi, crossed), K1K2_OPS_PER_ROW * rows)))
     log("k1k2", f"bit-equal on {T} random rows and {rows} sponza "
-        f"rows ({n_live} live, {int(got[1])} crossers); kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms; {share(records['fused_setup'])}; no "
-        f"single PyTorch call computes it")
+        f"rows ({n_live} live, {int(got[1])} crossers); kernel {g_ms:.4f} ms "
+        f"by CUDA graph ({ms:.4f} ms back to back), plain {plain_ms:.4f} ms; "
+        f"{share(records['fused_setup'])}; no single PyTorch call computes "
+        f"it")
     return rf, sp
 
 
@@ -335,15 +342,22 @@ def phase_visibility(device, rf, sp, resolution, records):
         lambda: raster_cuda.rasterize_visibility_stream_reference(
             binned, depth0, sp["scissor"], chunk=chunk, **kw), reps=1,
         warmup=0)
-    records["rasterize_visibility"] = dict(max_abs_err=err, ms=ms,
-                                           plain_ms=plain_ms, library_ms=None)
-    # the probes' yardstick: K3 timed as they are, over a CUDA graph
-    records["k3_graph_ms"] = graph_ms(lambda: raster_cuda.rasterize_visibility(
+    g_ms = graph_ms(lambda: raster_cuda.rasterize_visibility(
         binned, depth0, sp["scissor"], chunk=chunk, **kw), reps=20)
+    records["rasterize_visibility"] = dict(
+        max_abs_err=err, ms=g_ms, back_to_back_ms=ms, plain_ms=plain_ms,
+        library_ms=None)
+    # K3's floor: the same launch with every segment and the broad list
+    # empty (depth read, 7 maps written), beside P7, P6 and P1
+    empty = binned._replace(tile_start=torch.zeros_like(binned.tile_start),
+                            num_broad=torch.zeros_like(binned.num_broad))
+    records["k3_floor_ms"] = graph_ms(lambda: raster_cuda.rasterize_visibility(
+        empty, depth0, sp["scissor"], chunk=chunk, **kw), reps=20)
     log("k3", f"bit-equal on the full {W}x{H} frame ({int(binned.num_entries)}"
         f" entries, {int(binned.num_broad)} broad, "
-        f"{int((got.owner >= 0).sum())} covered px); kernel {ms:.4f} ms "
-        f"({records['k3_graph_ms']:.4f} ms by CUDA graph), plain "
+        f"{int((got.owner >= 0).sum())} covered px); kernel {g_ms:.4f} ms by "
+        f"CUDA graph ({ms:.4f} ms back to back; "
+        f"{records['k3_floor_ms']:.4f} ms on the empty table), plain "
         f"{plain_ms:.4f} ms; the early exit moved {moved} px off the "
         f"no-exit resolve (bound {EXIT_MOVED_MAX * W * H:.0f})")
     return binned, kw, depth0, su
@@ -366,6 +380,8 @@ def phase_counts(binned, kw, depth0, scissor, chunk, records, launches):
                              f"version ({bad} tiles' counts differ)")
     ms = cuda_ms(lambda: raster_cuda.rasterize_visibility(
         binned, depth0, scissor, chunk=chunk, counts=True, **kw), reps=20)
+    g_ms = graph_ms(lambda: raster_cuda.rasterize_visibility(
+        binned, depth0, scissor, chunk=chunk, counts=True, **kw), reps=20)
     plain_ms = cuda_ms(
         lambda: raster_cuda.rasterize_visibility_stream_reference(
             binned, depth0, scissor, chunk=chunk, counts=True, **kw),
@@ -376,7 +392,8 @@ def phase_counts(binned, kw, depth0, scissor, chunk, records, launches):
     visited = int(nvis.sum())
     tile_px = kw["tile_w"] * kw["tile_h"]
     records["rasterize_visibility_counts"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        max_abs_err=err, ms=g_ms, back_to_back_ms=ms, plain_ms=plain_ms,
+        library_ms=None,
         **k3_bound(binned, depth0, visited, "counts", tile_px))
     # the base variant visits the same entries (the same exit)
     records["rasterize_visibility"].update(
@@ -386,7 +403,8 @@ def phase_counts(binned, kw, depth0, scissor, chunk, records, launches):
         f"the early exit skipped {n - visited} of {n} narrow entries "
         f"({(n - visited) / max(n, 1):.2%}) at chunk {chunk}; tiles skipping "
         f"some {int(((seg - nvis.flatten()) > 0).sum())} of {seg.numel()}; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+        f"kernel {g_ms:.4f} ms by CUDA graph ({ms:.4f} ms back to back), "
+        f"plain {plain_ms:.4f} ms; "
         f"{share(records['rasterize_visibility_counts'])}; base "
         f"{share(records['rasterize_visibility'])}; no single PyTorch call "
         f"computes K3")
@@ -435,7 +453,9 @@ def phase_peel2(build_device, resolution, records, n_instances=100,
         lambda: raster_cuda.rasterize_visibility_stream_reference(
             binned, depth0, sp["scissor"], peel2=True, **kw), reps=1,
         warmup=0)
-    base_ms = cuda_ms(lambda: raster_cuda.rasterize_visibility(
+    g_ms = graph_ms(lambda: raster_cuda.rasterize_visibility(
+        binned, depth0, sp["scissor"], peel2=True, **kw), reps=20)
+    base_ms = graph_ms(lambda: raster_cuda.rasterize_visibility(
         binned, depth0, sp["scissor"], **kw), reps=20)
     # the entries the layer-1 exit visits: peel2's exit, on the deeper
     # layer, visits at least these, so the bound stays a lower bound
@@ -447,8 +467,9 @@ def phase_peel2(build_device, resolution, records, n_instances=100,
         f"({int(binned.num_entries)} entries, {int((vis.owner >= 0).sum())} "
         f"px covered, {int((vis2.owner >= 0).sum())} with a layer 2, "
         f"{int(((vis2.owner < 0) & (vis2.order >= 0)).sum())} gated); "
-        f"kernel {ms:.4f} ms (base variant on the same table {base_ms:.4f} "
-        f"ms), plain {plain_ms:.4f} ms; {share(dict(peel2_bound, ms=ms))}")
+        f"kernel {g_ms:.4f} ms by CUDA graph ({ms:.4f} ms back to back; base "
+        f"variant on the same table {base_ms:.4f} ms by CUDA graph), plain "
+        f"{plain_ms:.4f} ms; {share(dict(peel2_bound, ms=g_ms))}")
 
     OW, OH = overdraw_res
     rng = np.random.default_rng(7)
@@ -470,7 +491,8 @@ def phase_peel2(build_device, resolution, records, n_instances=100,
                 f"{float((v2.owner >= 0).float().mean()):.1%} of px, gated "
                 f"at {float(((v2.owner < 0) & (v2.order >= 0)).float().mean()):.1%}")
     records["rasterize_visibility_peel2"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        max_abs_err=err, ms=g_ms, back_to_back_ms=ms, plain_ms=plain_ms,
+        library_ms=None,
         **peel2_bound)
 
 
@@ -954,7 +976,7 @@ def phase_probes(device, card, records, launches, sponza_gather, reps=20,
     plain_ms["field_compute"] = cuda_ms(
         lambda: exp_mosaic_probe.compute_reference(x_r), 5)
 
-    k3_ms = records["k3_graph_ms"]
+    k3_ms = records["rasterize_visibility"]["ms"]
     for name, _, tool, variant, _ in PROBES:
         r = timed[(tool, variant)]
         records[name] = dict(
@@ -964,6 +986,10 @@ def phase_probes(device, card, records, launches, sponza_gather, reps=20,
             f"{r['ms']:.4f} ms by CUDA graph, plain {plain_ms[name]:.4f} ms; "
             f"{share(records[name])}; {r['ms'] / k3_ms:.1%} of K3's "
             f"{k3_ms:.4f} ms by CUDA graph on the sponza table")
+    log("probes", f"K3's floor (its launch on the empty table) "
+        f"{records['k3_floor_ms']:.4f} ms by CUDA graph, beside P7 "
+        f"{records['fixed_grid']['ms']:.4f}, P6 {records['fixed_cost']['ms']:.4f}"
+        f" and P1 {records['pipe_cost']['ms']:.4f} ms")
     log("probes", f"launches on the tools' path {launches['probes']}")
     return [(name, replaces, source) for name, replaces, _, _, source
             in PROBES]

@@ -9,6 +9,8 @@ conftest (which imports JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -82,6 +84,58 @@ def test_fused_setup_bit_equal(cuda_device, tiles):
         assert int(n_k) == int(n_r) > 0
 
 
+@pytest.mark.parametrize("D", [1, 7, 100, 5_000])
+@pytest.mark.parametrize("T", [1, 255, 257, 50_001])
+def test_fused_setup_blocks_and_draws(cuda_device, T, D):
+    """A block of 128 rows, one short of two, one past two, and many with a
+    ragged last block; from one draw to more than fit shared memory."""
+    W, H = 300, 170
+    dims = dict(tile_w=16, tile_h=16, grid_w=19, grid_h=11)
+    viewport = np.asarray([0, 0, W, H, 0, 1], np.float32)
+    scissor = np.asarray([0, 0, W, H], np.int32)
+    rng = np.random.default_rng(T + D)
+    args = [torch.from_numpy(a).to(cuda_device) for a in rand_scene(rng, T, D)]
+    got = setup_cuda.fused_setup(*args, True, viewport, scissor, **dims)
+    want = setup_cuda.fused_setup_reference(*args, True, viewport, scissor,
+                                            **dims)
+    torch.cuda.synchronize()
+    assert_setup_equal(got, want)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_fused_setup_on_a_misaligned_corner_view(cuda_device, offset):
+    """A corner table that starts 60, 120 or 180 bytes into its storage (a
+    later camera's rows): the kernel stages it with scalar loads."""
+    W, H = 300, 170
+    dims = dict(tile_w=16, tile_h=16, grid_w=19, grid_h=11)
+    viewport = np.asarray([0, 0, W, H, 0, 1], np.float32)
+    rng = np.random.default_rng(offset)
+    corner, *rest = rand_scene(rng, 50_001 + offset, 7)
+    corners = torch.from_numpy(corner).to(cuda_device)[offset:]
+    assert corners.data_ptr() % 16 != 0
+    args = [corners] + [torch.from_numpy(a[offset:]).to(cuda_device)
+                        for a in rest[:3]] + [
+        torch.from_numpy(rest[3]).to(cuda_device)]
+    got = setup_cuda.fused_setup(*args, True, viewport, [0, 0, W, H], **dims)
+    want = setup_cuda.fused_setup_reference(*args, True, viewport,
+                                            [0, 0, W, H], **dims)
+    torch.cuda.synchronize()
+    assert_setup_equal(got, want)
+    assert int(got[1]) > 0
+
+
+def assert_setup_equal(got, want):
+    """Channels bit for bit, flags, tile boxes and the crossers' count."""
+    (su_k, n_k, x_k), (su_r, n_r, x_r) = got, want
+    assert torch.equal(su_k.channels.view(torch.int32),
+                       su_r.channels.view(torch.int32))
+    for a, b in ((su_k.valid, su_r.valid), (su_k.tile_lo, su_r.tile_lo),
+                 (su_k.tile_hi, su_r.tile_hi), (x_k, x_r)):
+        assert torch.equal(a, b)
+    assert n_k.dtype == torch.int32 and n_k.shape == ()
+    assert int(n_k) == int(n_r)
+
+
 def binned_scene(device, rng, W, H, tile, T=3000):
     """Many overlapping triangles (long, front-to-back tile segments that
     exercise the early exit), a few broad ones."""
@@ -148,6 +202,94 @@ def test_visibility_equal_to_plain(cuda_device, case):
     # dips below its z bound here)
     for f in ("depth", "order", "uw", "vw", "iw", "tex"):
         assert torch.equal(getattr(got, f), getattr(exact, f)), f
+
+
+@functools.lru_cache(maxsize=None)
+def deep_scene(device, tile, W=300, H=170, T=16_000, seed=71):
+    """Layers of small triangles crowded toward the frame's center, half at
+    depths from a coarse set (exact ties), half at one depth each, drawn
+    in a random order, and a few broad triangles behind them: the central
+    tiles' segments run to several chunks of 256 rows and the early exit
+    stops most of them partway; the edge tiles are ragged at W x H."""
+    rng = np.random.default_rng(seed)
+    center = np.clip(rng.normal(0.0, 0.3, (T, 1, 2)), -1.05, 1.05)
+    xy = center + 0.06 * rng.uniform(-1, 1, (T, 3, 2))
+    z = np.where(rng.random((T, 1)) < 0.5, rng.integers(1, 9, (T, 1)) / 9.0,
+                 rng.uniform(0.0, 1.0, (T, 1)) + rng.uniform(0, 0.01, (T, 3)))
+    n = T + 4
+    clip = np.ones((n, 3, 4), np.float32)
+    clip[:T, :, :2] = xy
+    clip[:T, :, 2] = np.minimum(z, 1.0)
+    clip[T:, :, :2] = [[-3, -3], [3, -3], [0, 3]]
+    clip[T:, :, 2] = rng.uniform(0.6, 0.95, (4, 1))
+    uv = rng.random((n, 3, 2)).astype(np.float32)
+    tex = rng.integers(0, 4, n).astype(np.int32)
+    order = rng.permutation(n).astype(np.float32)
+    t = [torch.from_numpy(a).to(device) for a in (clip, uv, tex, order)]
+    gw, gh = -(-W // tile[0]), -(-H // tile[1])
+    su = S.setup_triangles(
+        t[0], t[1], t[2], torch.ones(n, dtype=torch.bool, device=device),
+        [0, 0, W, H, 0, 1], [0, 0, W, H], tile_w=tile[0], tile_h=tile[1],
+        grid_w=gw, grid_h=gh, order=t[3])
+    b = bin_triangles(su, grid_w=gw, grid_h=gh, entry_cap=1 << 19,
+                      max_tiles_per_tri=16, broad_cap=1024, spill_cap=1 << 17)
+    assert int(b.overflow) == 0 and int(b.num_broad) > 0
+    return b, dict(fb_w=W, fb_h=H, tile_w=tile[0], tile_h=tile[1],
+                   grid_w=gw, grid_h=gh)
+
+
+@pytest.mark.parametrize("chunk", [7, 64, 256])
+@pytest.mark.parametrize("tile", [(8, 8), (16, 16), (64, 16), (16, 32),
+                                  (8, 4)])
+@pytest.mark.parametrize("variant", ["base", "peel2", "counts"])
+def test_visibility_instances_by_tile_and_chunk(cuda_device, variant, tile,
+                                                chunk):
+    """Each instance's launch geometry (two pixels a thread; one partial
+    warp of 16 threads at 8x4), tile order and chunk ring against the
+    stream plain version, bit for bit; some tile's exit falls on a
+    prefetched chunk."""
+    b, dims = deep_scene(cuda_device, tile)
+    W, H = dims["fb_w"], dims["fb_h"]
+    ds = DepthState(test_enable=True, write_enable=True,
+                    compare_op=CompareOp.LESS_OR_EQUAL)
+    depth0 = torch.ones((H, W), device=cuda_device)
+    kw = dict(depth_state=ds, chunk=chunk, peel2=variant == "peel2",
+              counts=variant == "counts", **dims)
+    before = raster_cuda.variant_launches[variant]
+    got = raster_cuda.rasterize_visibility(b, depth0, (0, 0, W, H), **kw)
+    want = rasterize_visibility_stream_reference(b, depth0, (0, 0, W, H),
+                                                 **kw)
+    torch.cuda.synchronize()
+    assert raster_cuda.variant_launches[variant] == before + 1
+    if variant == "base":
+        assert_layers_equal(got, want)
+        return
+    assert_layers_equal(got[0], want[0])
+    if variant == "peel2":
+        assert_layers_equal(got[1], want[1])
+        assert (got[1].owner >= 0).any()
+        return
+    assert torch.equal(got[1], want[1])
+    nvis = got[1].flatten()
+    seg = b.tile_start[1:] - b.tile_start[:-1]
+    assert ((nvis >= chunk) & (nvis < seg)).any()
+
+
+def test_visibility_rejects_a_misaligned_entry_table(cuda_device):
+    b, dims = deep_scene(cuda_device, (16, 16))
+    ent = b.entry_channels
+    shifted = torch.empty(ent.numel() + 1, device=cuda_device)[1:].view(
+        ent.shape)
+    shifted.copy_(ent)
+    ds = DepthState(test_enable=True, write_enable=True,
+                    compare_op=CompareOp.LESS_OR_EQUAL)
+    before = raster_cuda.launches()
+    with pytest.raises(ValueError, match="aligned"):
+        raster_cuda.rasterize_visibility(
+            b._replace(entry_channels=shifted),
+            torch.ones((dims["fb_h"], dims["fb_w"]), device=cuda_device),
+            (0, 0, dims["fb_w"], dims["fb_h"]), depth_state=ds, **dims)
+    assert raster_cuda.launches() == before
 
 
 @pytest.mark.parametrize("case", ["le_d16", "less_d16", "le_d32",

@@ -146,6 +146,7 @@ def _bind(lib) -> None:
         i, i, i, i,               # tile shifts, grid dims
         i, i,                     # cull, ccw_front
         p, p, p, p, p,            # channels, valid, tile_lo, tile_hi, crossed
+        p,                        # crossings (i32, zeroed)
         p,                        # stream
     ]
     lib.ty_rasterize_visibility.restype = i
@@ -155,9 +156,11 @@ def _bind(lib) -> None:
         i, i, i, i, i, i,         # fb_w, fb_h, tile_w, tile_h, grid_w, grid_h
         i, i, i, i,               # scissor
         i, i, i, i,               # owner_base, chunk, le, d16
+        i, i,                     # threads, pixels a thread (k3_launch)
         p, p, p, p, p, p, p,      # owner, z, order, uw, vw, iw, tex
         p, p, p, p, p, p, p,      # layer 2 of the same (peel2), or null
         p,                        # nvis (counts), or null
+        p,                        # tile order (scratch, i32 [ntiles])
         p,                        # stream
     ]
     maps = [p] * 7                # up to 7 output maps, null past the last

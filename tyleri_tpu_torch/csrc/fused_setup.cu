@@ -3,23 +3,37 @@
 // Replaces tyleri_tpu/ops/setup_pallas.py: _transform_kernel (K1) and
 // _plane_kernel (K2), launched by fused_setup.  The TPU needed two kernels
 // (a compile-time workaround) and a field-major corner table with a masked
-// sweep over the draw table; here one thread owns one triangle, reads its
-// row-major corner row and indexes mvps[draw] directly.
+// sweep over the draw table; here one kernel reads the row-major corner
+// table and indexes mvps[draw] directly, with no draw cap.
 //
-// Bound: memory.  Per triangle ~80 B are read (15 corner floats, draw, tex,
-// valid, one MVP row from L2) and ~110 B written (24 channels, bbox,
-// flags): ~0.2 GB per frame at 1M triangles against 3.35 TB/s, with ~300
-// flops per triangle.  The design keeps everything in registers between
-// the read and the write (no intermediate table, unlike the TPU's win12),
-// and writes each output once.
+// Bound: bytes.  Per triangle 69 B are read (15 corner floats, draw, tex,
+// valid) and 114 B written (24 channels, valid, crossed, the tile box):
+// 0.2 GB at sponza's 1.1 M rows, 0.06 ms at 3.35 TB/s, against ~300 f32
+// operations a triangle (0.01 ms).  So the design is about the rows' bytes:
+//
+//   * a CTA owns BLOCK consecutive triangles; their corner rows are one
+//     contiguous run of BLOCK * 60 bytes, staged into shared memory with
+//     16-byte loads (scalar loads where a view's base is not 16-byte
+//     aligned), every warp reading whole sectors;
+//   * each thread computes its triangle from shared memory and writes its
+//     24 channels into a shared row padded to ROW_PAD words (24 would put
+//     the k-th channel of 32 threads in 4 banks, an 8-way conflict; 25 is
+//     odd, so 32 banks);
+//   * the CTA writes the block's [n, 24] rows, one contiguous run, with
+//     16-byte stores, and the tile box as int2 stores;
+//   * the crossers are counted in the kernel: a warp ballot, its popcount,
+//     one atomicAdd a warp into an i32 the wrapper zeroes;
+//   * mvps goes through the read-only path (a frame's draws share a few
+//     rows, which stay in L1), whatever the number of draws.
 //
 // Numerics: built with -fmad=false; every expression follows
 // setup_pallas.py:110-319 operation by operation, so the kernel is
 // bit-equal to fused_setup_reference (ops/setup_cuda.py) on the card.  In
 // particular the transform order ((m0*x + m1*y) + m2*z) + m3 matches the
-// re-transform of near-plane crossers in rendering/passes.py, and CH_ZMIN
-// keeps the |vx| + vw + 128 evaluation bound that makes K3's early exit
-// exact.
+// re-transform of near-plane crossers in rendering/passes.py.  CH_ZMIN is
+// setup.py::_zmin_quantized: the corner depths less the f32 evaluation
+// error of the z plane; it does not bound a nearly degenerate triangle's
+// plane (ROADMAP R7), and K3's early exit inherits that.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,6 +49,11 @@ constexpr float META_TEX_MASK = 262143.0f;   // (1 << 18) - 1
 constexpr float META_SCALE = 262144.0f;      // 1 << 18
 constexpr float INT_CLAMP = 1073741824.0f;   // 2^30
 
+constexpr int BLOCK = 128;                   // triangles (and threads) a CTA
+constexpr int CORNER_FLOATS = 15;            // 3 corners x (x, y, z, u, v)
+constexpr int ROW_PAD = NUM_CHANNELS + 1;    // shared channel row, in words
+constexpr int ROW_VEC = NUM_CHANNELS / 4;    // 16-byte vectors a channel row
+
 struct Params {
     const float* corners;      // [T, 3, 5] pos xyz + uv per corner
     const int* tri_draw;       // [T]
@@ -47,11 +66,12 @@ struct Params {
     int shift_x, shift_y, grid_w, grid_h;
     int cull;                  // 0 none, 1 back, 2 front, 3 both
     int ccw_front;
-    float* channels;           // [T, 24]
+    float* channels;           // [T, 24], 16-byte aligned
     uint8_t* valid;            // [T]
-    int* tile_lo;              // [T, 2]
-    int* tile_hi;              // [T, 2]
+    int2* tile_lo;             // [T] (tx0, ty0)
+    int2* tile_hi;             // [T] (tx1, ty1)
     uint8_t* crossed;          // [T]
+    int* crossings;            // [1], zeroed by the caller
 };
 
 __device__ __forceinline__ int to_int(float f) {
@@ -64,11 +84,11 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
     return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__global__ void fused_setup_kernel(Params p) {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= p.T) return;
-
-    const float* c = p.corners + (size_t)t * 15;
+// Triangle t from its corner row c (shared memory): its 24 channels into
+// the shared row ch, its flags and tile box to device memory.  Returns
+// whether it crosses the near plane.
+__device__ __forceinline__ bool setup_triangle(const Params& p, int t,
+                                               const float* c, float* ch) {
     const int draw = p.tri_draw[t];
     const bool table_valid = p.tri_valid[t] != 0;
     const bool draw_ok = draw >= 0 && draw < p.D;
@@ -78,7 +98,7 @@ __global__ void fused_setup_kernel(Params p) {
     float m[16];
     const float* mv = p.mvps + (size_t)(draw_ok ? draw : 0) * 16;
 #pragma unroll
-    for (int k = 0; k < 16; ++k) m[k] = draw_ok ? mv[k] : 0.0f;
+    for (int k = 0; k < 16; ++k) m[k] = draw_ok ? __ldg(mv + k) : 0.0f;
     float cl[3][4];
 #pragma unroll
     for (int v = 0; v < 3; ++v) {
@@ -119,7 +139,6 @@ __global__ void fused_setup_kernel(Params p) {
     const float sgn = area2 > 0.0f ? 1.0f : -1.0f;
     const float inv_abs_area2 = sgn / (nondeg ? area2 : 1.0f);
 
-    float* ch = p.channels + (size_t)t * NUM_CHANNELS;
     float eA[3], eB[3], eC[3], tl[3];
 #pragma unroll
     for (int e = 0; e < 3; ++e) {
@@ -153,14 +172,18 @@ __global__ void fused_setup_kernel(Params p) {
     }
     const float* attrs[4] = {sz, iw, uw, vwv};
     const int rows[4] = {CH_Z, CH_INVW, CH_UW, CH_VW};
+    float zA = 0.0f, zB = 0.0f, zC = 0.0f;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
         const float* a = attrs[k];
-        ch[rows[k]] = (a[0] * lamA[0] + a[1] * lamA[1]) + a[2] * lamA[2];
-        ch[rows[k] + 1] = (a[0] * lamB[0] + a[1] * lamB[1]) + a[2] * lamB[2];
-        ch[rows[k] + 2] = (a[0] * lamC[0] + a[1] * lamC[1]) + a[2] * lamC[2];
+        const float pA = (a[0] * lamA[0] + a[1] * lamA[1]) + a[2] * lamA[2];
+        const float pB = (a[0] * lamB[0] + a[1] * lamB[1]) + a[2] * lamB[2];
+        const float pC = (a[0] * lamC[0] + a[1] * lamC[1]) + a[2] * lamC[2];
+        ch[rows[k]] = pA;
+        ch[rows[k] + 1] = pB;
+        ch[rows[k] + 2] = pC;
+        if (k == 0) { zA = pA; zB = pB; zC = pC; }
     }
-    const float zA = ch[CH_Z], zB = ch[CH_Z + 1], zC = ch[CH_Z + 2];
 
     // ---- tile bbox clamped to the scissor ----
     const int px0 = max(to_int(floorf(fminf(fminf(sx[0], sx[1]), sx[2]) - 0.5f)), p.scx);
@@ -203,10 +226,47 @@ __global__ void fused_setup_kernel(Params p) {
 
     p.valid[t] = valid ? 1 : 0;
     p.crossed[t] = crossed ? 1 : 0;
-    p.tile_lo[2 * t] = tx0;
-    p.tile_lo[2 * t + 1] = ty0;
-    p.tile_hi[2 * t] = tx1;
-    p.tile_hi[2 * t + 1] = ty1;
+    p.tile_lo[t] = make_int2(tx0, ty0);
+    p.tile_hi[t] = make_int2(tx1, ty1);
+    return crossed;
+}
+
+__global__ void __launch_bounds__(BLOCK) fused_setup_kernel(Params p) {
+    __shared__ __align__(16) float s_corners[BLOCK * CORNER_FLOATS];
+    __shared__ float s_rows[BLOCK * ROW_PAD];
+    const int t0 = blockIdx.x * BLOCK;
+    const int n = min(BLOCK, p.T - t0);   // the ragged last block
+    const int tid = threadIdx.x;
+
+    // stage the block's corner rows: n * 15 contiguous floats, which start
+    // 16-byte aligned wherever the table does (BLOCK * 60 B is a multiple
+    // of 16)
+    const float* src = p.corners + (size_t)t0 * CORNER_FLOATS;
+    const int nf = n * CORNER_FLOATS;
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        const float4* src4 = reinterpret_cast<const float4*>(src);
+        float4* dst4 = reinterpret_cast<float4*>(s_corners);
+        for (int v = tid; v < nf / 4; v += BLOCK) dst4[v] = __ldg(src4 + v);
+        done = nf / 4 * 4;
+    }
+    for (int f = done + tid; f < nf; f += BLOCK) s_corners[f] = __ldg(src + f);
+    __syncthreads();
+
+    bool crossed = false;
+    if (tid < n)
+        crossed = setup_triangle(p, t0 + tid, s_corners + tid * CORNER_FLOATS,
+                                 s_rows + tid * ROW_PAD);
+    const unsigned ballot = __ballot_sync(0xffffffffu, crossed);
+    if ((tid & 31) == 0 && ballot != 0) atomicAdd(p.crossings, __popc(ballot));
+    __syncthreads();
+
+    // the block's [n, 24] channel rows: one contiguous run, 16-byte stores
+    float4* dst = reinterpret_cast<float4*>(p.channels + (size_t)t0 * NUM_CHANNELS);
+    for (int v = tid; v < n * ROW_VEC; v += BLOCK) {
+        const float* r = s_rows + (v / ROW_VEC) * ROW_PAD + (v % ROW_VEC) * 4;
+        dst[v] = make_float4(r[0], r[1], r[2], r[3]);
+    }
 }
 
 }  // namespace
@@ -220,15 +280,19 @@ extern "C" int ty_fused_setup(
     int shift_x, int shift_y, int grid_w, int grid_h,
     int cull, int ccw_front,
     float* channels, uint8_t* valid, int* tile_lo, int* tile_hi,
-    uint8_t* crossed, void* stream) {
+    uint8_t* crossed, int* crossings, void* stream) {
+    if ((reinterpret_cast<uintptr_t>(channels) & 15) != 0
+        || (reinterpret_cast<uintptr_t>(tile_lo) & 7) != 0
+        || (reinterpret_cast<uintptr_t>(tile_hi) & 7) != 0)
+        return (int)cudaErrorMisalignedAddress;
     Params p{corners, tri_draw, tri_tex, tri_valid, mvps, T, D, cam_valid,
              vx, vy, vw, vh, dmin, dmax, scx, scy, scw, sch,
              shift_x, shift_y, grid_w, grid_h, cull, ccw_front,
-             channels, valid, tile_lo, tile_hi, crossed};
+             channels, valid, reinterpret_cast<int2*>(tile_lo),
+             reinterpret_cast<int2*>(tile_hi), crossed, crossings};
     if (T > 0) {
-        const int threads = 256;
-        const int blocks = (T + threads - 1) / threads;
-        fused_setup_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
+        const int blocks = (T + BLOCK - 1) / BLOCK;
+        fused_setup_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(p);
     }
     return (int)cudaGetLastError();
 }

@@ -10,32 +10,53 @@
 //   counts  <false, true>   also nvis, the narrow entries resolved per tile
 //                           before the early exit.
 //
-// One CTA per screen tile, one pixel per thread.  The tile's segment
-// [tile_start[t], tile_start[t+1]) of the zmin-sorted entry table streams
-// through shared memory in chunks of `chunk` rows (24 f32 = 96 B each);
-// every thread then walks the chunk's rows, reading coefficients as
-// shared-memory broadcasts.  After each chunk a block-wide max of the
-// tile's depth gives `thresh`; the next chunk runs only if its first row's
-// CH_ZMIN * (1/65535) <= thresh.  CH_ZMIN bounds the triangle's corner
+// What it computes: one CTA per screen tile.  The tile's segment
+// [tile_start[t], tile_start[t+1]) of the zmin-sorted entry table runs front
+// to back in chunks of `chunk` rows (24 f32 = 96 B each).  Before chunk k
+// resolves, its first row's CH_ZMIN * (1/65535) is compared with the tile's
+// deepest depth after chunk k - 1 (of layer 2 under peel2), and the tile
+// stops there if it lies beyond.  CH_ZMIN bounds the triangle's corner
 // depths less the plane's f32 evaluation error (setup.py::_zmin_quantized),
 // so the exit skips only rows that cannot pass wherever the f32 z plane
-// stays above it; on nearly degenerate triangles it may not (see
-// ops/visibility.py), as in the TPU kernel.  The broad (huge-triangle)
-// list is scanned last with a tile-bbox test.
+// stays above it; on nearly degenerate triangles it may not (ROADMAP R7,
+// ops/visibility.py), as in the TPU kernel.  The broad (huge-triangle) list
+// is scanned last with a tile-box test.
 //
-// Bound: latency and occupancy.  The work is ~30 flops per pixel-entry and
-// the exit skips the back of deep tiles' segments, so the kernel waits on
-// the chunk loads and the per-chunk barrier + reduction.  The design keeps
-// the per-entry loop free of global loads and of barriers, lets several
-// 256-thread CTAs share an SM to hide the loads, and skips the loads of
-// chunks past the exit.
+// Bound: operations.  Per (entry, pixel) pair 29 f32 operations (35 under
+// peel2), each one instruction, over the entries the exit lets through: at
+// sponza 1080p ~0.12 ms at 33.5 T instructions/s, against ~0.06 ms of bytes.
+// The one-pixel-a-thread kernel this replaces reached 30 % of it: every
+// pair reloaded its coefficients from shared memory, each chunk was loaded
+// while the whole CTA waited, a chunk took four barriers, and the tiles
+// with the longest segments often started last and ran alone at the end.
+// What the design does about it:
 //
-// peel2 keeps a second 7-field state per pixel in registers and applies the
-// three layer-2 rules of raster_pallas.py:262-291 in resolve(); its exit
-// threshold is the block max of the layer-2 depth (z2 >= z1, and an entry
-// beyond every z2 can change neither layer).  counts adds each chunk's row
-// count as it passes the exit test.  Both are `if constexpr` branches, so
-// the base instance carries neither the second state nor the counter.
+//   * two pixels a thread: a thread owns PPT pixels of one column (rows g
+//     and g + G of the tile, G = tile_h / PPT), so each coefficient read
+//     from shared memory serves PPT pixels, and each plane's c0 * x is
+//     computed once an entry for the column (the same product, so the same
+//     bits as at every pixel).  PPT is one constant for the three
+//     instances: at 4 (64 threads a 16x16 tile) and 8 a tile's entries run
+//     through fewer threads and the longest tiles set the launch's time;
+//     at 1 each pair costs more loads (PERF.md).  ops/raster_cuda.py's
+//     k3_launch gives the same geometry to the wrapper;
+//   * the tiles launch longest segment first: tile_order_kernel, launched
+//     just before, sorts them by segment length in buckets of 8 rows, so
+//     the long tiles overlap the many short ones;
+//   * a two-slot chunk ring in shared memory, filled with 16-byte cp.async:
+//     chunk k + 1 loads while chunk k resolves.  A chunk prefetched past the
+//     exit is dropped, never resolved; its load is the price, at most one
+//     chunk a tile;
+//   * one barrier a chunk: it publishes the landed chunk, frees the other
+//     slot for the next prefetch, and publishes each warp's depth maximum
+//     (a shuffle within the warp; the warps' values go through a
+//     double-buffered shared array, so no second barrier).  A tile of one
+//     warp or less takes the shuffle alone.
+//
+// peel2 keeps a second 7-field state per pixel and applies the three
+// layer-2 rules of raster_pallas.py:262-291 in resolve(); counts adds each
+// chunk's row count as it passes the exit test.  Both are `if constexpr`
+// branches, so the base instance carries neither.
 //
 // Numerics: built with -fmad=false, rintf (round half to even, as
 // jnp.round), and the float top-left compares, so the maps are bit-equal to
@@ -52,10 +73,17 @@ constexpr int CH_E0 = 0, CH_E1 = 3, CH_TWOA = 6, CH_Z = 9, CH_INVW = 12;
 constexpr int CH_UW = 15, CH_VW = 18, CH_META = 21, CH_ORDER = 22, CH_ZMIN = 23;
 constexpr int META_TEX_BITS = 18;
 constexpr int META_TEX_MASK = (1 << META_TEX_BITS) - 1;
+constexpr int MAX_WARPS = 32;
+// pixels a thread, every instance (ops/raster_cuda.py: K3_PPT)
+constexpr int PPT = 2;
+// the tile order: segment lengths in buckets of 8 rows, the last open
+constexpr int ORDER_THREADS = 1024;
+constexpr int ORDER_BUCKETS = 512;
+constexpr int ORDER_SHIFT = 3;
 
 struct Params {
     const int* tile_start;     // [ntiles + 1]
-    const float* entries;      // [E, 24] sorted by (tile, zmin)
+    const float* entries;      // [E, 24] sorted by (tile, zmin), 16-B aligned
     const float* broad_ch;     // [B, 24]
     const int* broad_tiles;    // [B, 4] (tx0, ty0, tx1, ty1)
     const int* nbroad;         // [1] live broad rows (device scalar)
@@ -69,6 +97,7 @@ struct Params {
     int* owner2; float* z2; float* order2; float* uw2; float* vw2; float* iw2;
     int* tex2;
     int* nvis;                 // [ntiles] (counts only)
+    const int* tile_order;     // [ntiles] the tiles, longest segment first
 };
 
 struct Layer {
@@ -76,127 +105,242 @@ struct Layer {
     int owner, tex;
 };
 
-struct Pixel {
-    float xf, yf;
-    bool live;  // inside the framebuffer and the scissor
-    Layer l1, l2;  // l2 is live in the peel2 instance only
+// A thread's pixels: PPT rows of one column.
+struct Column {
+    float xf;          // the column's pixel center
+    float yf[PPT];
+    bool live[PPT];    // inside the framebuffer and the scissor
+    Layer l1[PPT], l2[PPT];  // l2 is live in the peel2 instance only
 };
 
-__device__ __forceinline__ float plane(const float* c, int row, float x, float y) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// c[row] * x + c[row + 1] * y + c[row + 2], with c[row] * x given
+__device__ __forceinline__ float plane_cx(const float* c, int row, float cx,
+                                          float y) {
+    return (cx + c[row + 1] * y) + c[row + 2];
+}
+
+__device__ __forceinline__ float plane(const float* c, int row, float x,
+                                       float y) {
     return (c[row] * x + c[row + 1] * y) + c[row + 2];
 }
 
-// One entry against this thread's pixel (raster_pallas.py resolve_half).
+// One entry against the thread's PPT pixels (raster_pallas.py
+// resolve_half, pixel by pixel).
 template <bool PEEL2>
-__device__ __forceinline__ void resolve(const float* c, int eid, Pixel& px,
+__device__ __forceinline__ void resolve(const float* c, int eid, Column& col,
                                         bool le, bool d16) {
     const int meta = (int)c[CH_META];
     const int tl = meta >> META_TEX_BITS;
-    const float e0 = plane(c, CH_E0, px.xf, px.yf);
-    const float e1 = plane(c, CH_E1, px.xf, px.yf);
-    const float e2 = (c[CH_TWOA] - e0) - e1;
-    const bool cov = (e0 > 0.0f || (e0 == 0.0f && (tl & 1)))
-                     && (e1 > 0.0f || (e1 == 0.0f && (tl & 2)))
-                     && (e2 > 0.0f || (e2 == 0.0f && (tl & 4)));
-    const float zv = plane(c, CH_Z, px.xf, px.yf);
-    const float zc = fminf(fmaxf(zv, 0.0f), 1.0f);
-    const float zq = d16 ? rintf(zc * 65535.0f) * (1.0f / 65535.0f) : zc;
     const float ord = c[CH_ORDER];
-    const bool frag = cov && zv == zc && px.live;
-    Layer& a = px.l1;
-    const bool pass = frag && (zq < a.zbuf
-                               || (zq == a.zbuf && (le ? ord >= a.obuf
-                                                       : ord < a.obuf)));
-    if constexpr (PEEL2) {
-        // layer 2 = the record holder just before the winner drew:
-        //  * a losing fragment enters it only if drawn before the winner;
-        //  * a new winner demotes the old one if drawn after it; otherwise
-        //    layer 2 stays while drawn before the new winner, else it
-        //    becomes a record gate at the old winner (owner -1).
-        Layer& b = px.l2;
-        const bool beats2 = frag && !pass && ord < a.obuf
-            && (zq < b.zbuf || (zq == b.zbuf && (le ? ord >= b.obuf
-                                                    : ord < b.obuf)));
-        const bool demote = pass && a.obuf < ord;
-        const bool inval = pass && !demote && !(b.obuf < ord);
-        if (demote || inval) {
-            b = a;
-            if (inval) b.owner = -1;
-        } else if (beats2) {
-            b.zbuf = zq;
-            b.owner = eid;
-            b.obuf = ord;
-            b.uw = plane(c, CH_UW, px.xf, px.yf);
-            b.vw = plane(c, CH_VW, px.xf, px.yf);
-            b.iw = plane(c, CH_INVW, px.xf, px.yf);
-            b.tex = meta & META_TEX_MASK;
+    const float twoa = c[CH_TWOA];
+    const float e0x = c[CH_E0] * col.xf;
+    const float e1x = c[CH_E1] * col.xf;
+    const float zx = c[CH_Z] * col.xf;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+        const float yf = col.yf[i];
+        const float e0 = plane_cx(c, CH_E0, e0x, yf);
+        const float e1 = plane_cx(c, CH_E1, e1x, yf);
+        const float e2 = (twoa - e0) - e1;
+        const bool cov = (e0 > 0.0f || (e0 == 0.0f && (tl & 1)))
+                         && (e1 > 0.0f || (e1 == 0.0f && (tl & 2)))
+                         && (e2 > 0.0f || (e2 == 0.0f && (tl & 4)));
+        const float zv = plane_cx(c, CH_Z, zx, yf);
+        const float zc = fminf(fmaxf(zv, 0.0f), 1.0f);
+        const float zq = d16 ? rintf(zc * 65535.0f) * (1.0f / 65535.0f) : zc;
+        const bool frag = cov && zv == zc && col.live[i];
+        Layer& a = col.l1[i];
+        const bool pass = frag && (zq < a.zbuf
+                                   || (zq == a.zbuf && (le ? ord >= a.obuf
+                                                           : ord < a.obuf)));
+        if constexpr (PEEL2) {
+            // layer 2 = the record holder just before the winner drew:
+            //  * a losing fragment enters it only if drawn before the winner;
+            //  * a new winner demotes the old one if drawn after it;
+            //    otherwise layer 2 stays while drawn before the new winner,
+            //    else it becomes a record gate at the old winner (owner -1).
+            Layer& b = col.l2[i];
+            const bool beats2 = frag && !pass && ord < a.obuf
+                && (zq < b.zbuf || (zq == b.zbuf && (le ? ord >= b.obuf
+                                                        : ord < b.obuf)));
+            const bool demote = pass && a.obuf < ord;
+            const bool inval = pass && !demote && !(b.obuf < ord);
+            if (demote || inval) {
+                b = a;
+                if (inval) b.owner = -1;
+            } else if (beats2) {
+                b.zbuf = zq;
+                b.owner = eid;
+                b.obuf = ord;
+                b.uw = plane(c, CH_UW, col.xf, yf);
+                b.vw = plane(c, CH_VW, col.xf, yf);
+                b.iw = plane(c, CH_INVW, col.xf, yf);
+                b.tex = meta & META_TEX_MASK;
+            }
         }
-    }
-    if (pass) {
-        a.zbuf = zq;
-        a.owner = eid;
-        a.obuf = ord;
-        a.uw = plane(c, CH_UW, px.xf, px.yf);
-        a.vw = plane(c, CH_VW, px.xf, px.yf);
-        a.iw = plane(c, CH_INVW, px.xf, px.yf);
-        a.tex = meta & META_TEX_MASK;
+        if (pass) {
+            a.zbuf = zq;
+            a.owner = eid;
+            a.obuf = ord;
+            a.uw = plane(c, CH_UW, col.xf, yf);
+            a.vw = plane(c, CH_VW, col.xf, yf);
+            a.iw = plane(c, CH_INVW, col.xf, yf);
+            a.tex = meta & META_TEX_MASK;
+        }
     }
 }
 
-__device__ float block_max(float v, float* scratch) {
-    for (int off = 16; off > 0; off >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int nwarps = (blockDim.x + 31) >> 5;
-    __syncthreads();  // scratch may still be read from the last call
-    if (lane == 0) scratch[warp] = v;
-    __syncthreads();
-    float m = scratch[0];
-    for (int w = 1; w < nwarps; ++w) m = fmaxf(m, scratch[w]);
+// The max of v over a warp's threads (a tile of fewer than 32 threads is
+// one partial warp of a power-of-two size).
+__device__ __forceinline__ float warp_max(float v) {
+    const int n = min((int)blockDim.x, 32);
+    const unsigned mask = n == 32 ? 0xffffffffu : (1u << n) - 1u;
+    for (int off = n >> 1; off > 0; off >>= 1)
+        v = fmaxf(v, __shfl_xor_sync(mask, v, off));
+    return v;
+}
+
+// The exit threshold: the deepest depth of the layer the exit reads.
+template <bool PEEL2>
+__device__ __forceinline__ float column_max(const Column& col) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i)
+        m = fmaxf(m, PEEL2 ? col.l2[i].zbuf : col.l1[i].zbuf);
     return m;
+}
+
+// The tiles in descending order of segment length (a counting sort on
+// buckets of 8 rows; ties in any order): the longest tiles start first, so
+// they do not run alone at the end of the launch.
+__global__ void __launch_bounds__(ORDER_THREADS)
+tile_order_kernel(const int* tile_start, int ntiles, int* order) {
+    __shared__ int count[ORDER_BUCKETS];
+    auto bucket = [&](int t) {
+        return min((tile_start[t + 1] - tile_start[t]) >> ORDER_SHIFT,
+                   ORDER_BUCKETS - 1);
+    };
+    for (int b = threadIdx.x; b < ORDER_BUCKETS; b += blockDim.x) count[b] = 0;
+    __syncthreads();
+    for (int t = threadIdx.x; t < ntiles; t += blockDim.x)
+        atomicAdd(&count[bucket(t)], 1);
+    __syncthreads();
+    if (threadIdx.x < 32) {
+        // each bucket's first slot: the tiles of every longer bucket; lane l
+        // scans 16 buckets from the top, then the lanes' sums are scanned
+        constexpr int PER = ORDER_BUCKETS / 32;
+        const int lane = threadIdx.x;
+        int sum = 0;
+        for (int i = 0; i < PER; ++i)
+            sum += count[ORDER_BUCKETS - 1 - (lane * PER + i)];
+        int incl = sum;
+        for (int off = 1; off < 32; off <<= 1) {
+            const int v = __shfl_up_sync(0xffffffffu, incl, off);
+            if (lane >= off) incl += v;
+        }
+        int run = incl - sum;
+        for (int i = 0; i < PER; ++i) {
+            const int b = ORDER_BUCKETS - 1 - (lane * PER + i);
+            const int c = count[b];
+            count[b] = run;
+            run += c;
+        }
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < ntiles; t += blockDim.x)
+        order[atomicAdd(&count[bucket(t)], 1)] = t;
 }
 
 template <bool PEEL2, bool COUNTS>
 __global__ void visibility_kernel(Params p) {
-    extern __shared__ float smem[];           // [chunk, 24]
-    __shared__ float red[32];
-    const int t = blockIdx.x;
+    extern __shared__ __align__(16) float ring[];  // [2][chunk][24]
+    // each warp's depth max; slot (k & 1) after chunk k, slot 1 before chunk 0
+    __shared__ float red[2][MAX_WARPS];
+    const int t = p.tile_order[blockIdx.x];
     const int gx = t % p.grid_w, gy = t / p.grid_w;
-    const int lx = threadIdx.x % p.tile_w, ly = threadIdx.x / p.tile_w;
-    const int x = gx * p.tile_w + lx, y = gy * p.tile_h + ly;
-    const bool inside = x < p.fb_w && y < p.fb_h;
+    const int groups = blockDim.x / p.tile_w;   // G: row groups of the tile
+    const int x = gx * p.tile_w + threadIdx.x % p.tile_w;
+    const int y0 = gy * p.tile_h + threadIdx.x / p.tile_w;
     const bool le = p.le != 0, d16 = p.d16 != 0;
+    const bool x_in = x < p.fb_w;
+    const bool x_live = x >= p.scx && x < p.scx + p.scw;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int nwarps = (blockDim.x + 31) >> 5;
 
-    Pixel px;
-    px.xf = (float)x + 0.5f;
-    px.yf = (float)y + 0.5f;
-    px.live = inside && x >= p.scx && x < p.scx + p.scw
-              && y >= p.scy && y < p.scy + p.sch;
-    px.l1.zbuf = inside ? p.depth0[(size_t)y * p.fb_w + x] : -INFINITY;
-    px.l1.obuf = -1.0f;
-    px.l1.owner = -1;
-    px.l1.uw = 0.0f; px.l1.vw = 0.0f; px.l1.iw = 1.0f;
-    px.l1.tex = 0;
-    if constexpr (PEEL2) px.l2 = px.l1;
+    Column col;
+    col.xf = (float)x + 0.5f;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+        const int y = y0 + i * groups;
+        const bool inside = x_in && y < p.fb_h;
+        col.yf[i] = (float)y + 0.5f;
+        col.live[i] = inside && x_live && y >= p.scy && y < p.scy + p.sch;
+        Layer& a = col.l1[i];
+        a.zbuf = inside ? p.depth0[(size_t)y * p.fb_w + x] : -INFINITY;
+        a.obuf = -1.0f;
+        a.owner = -1;
+        a.uw = 0.0f; a.vw = 0.0f; a.iw = 1.0f;
+        a.tex = 0;
+        if constexpr (PEEL2) col.l2[i] = a;
+    }
 
     // ---- narrow entries: the tile's segment, front to back ----
     const int start = p.tile_start[t], end = p.tile_start[t + 1];
-    float thresh = block_max(PEEL2 ? px.l2.zbuf : px.l1.zbuf, red);
+    const int chunk = p.chunk;
+    const int nchunks = end > start ? (end - start + chunk - 1) / chunk : 0;
     const float inv_q = 1.0f / 65535.0f;
-    int visited = 0;
-    for (int s = start; s < end; s += p.chunk) {
-        const int n = min(p.chunk, end - s);
-        __syncthreads();  // the previous chunk is fully consumed
+    auto issue = [&](int k) {  // chunk k into slot k & 1
+        const int s = start + k * chunk;
+        const int nvec = min(chunk, end - s) * (NC / 4);
+        float* dst = ring + (k & 1) * chunk * NC;
         const float* src = p.entries + (size_t)s * NC;
-        for (int i = threadIdx.x; i < n * NC; i += blockDim.x) smem[i] = src[i];
+        for (int v = threadIdx.x; v < nvec; v += blockDim.x)
+            cp_async16(dst + 4 * v, src + 4 * v);
+        cp_async_commit();
+    };
+
+    float wmax = warp_max(column_max<PEEL2>(col));
+    if (nwarps > 1 && lane == 0) red[1][warp] = wmax;
+    if (nchunks > 0) issue(0);
+    int visited = 0;
+    for (int k = 0; k < nchunks; ++k) {
+        cp_async_wait_all();
+        // chunk k has landed for every thread; every thread is done with
+        // chunk k - 1's slot and has published its warp's max after it
         __syncthreads();
-        // uniform exit test: shared value against the block-wide thresh
-        if (smem[CH_ZMIN] * inv_q > thresh) break;
+        float thresh = wmax;
+        if (nwarps > 1) {
+            const float* r = red[(k + 1) & 1];
+            thresh = r[0];
+            for (int w = 1; w < nwarps; ++w) thresh = fmaxf(thresh, r[w]);
+        }
+        const float* buf = ring + (k & 1) * chunk * NC;
+        // uniform exit test: a shared value against the tile-wide threshold
+        if (buf[CH_ZMIN] * inv_q > thresh) break;
+        if (k + 1 < nchunks) issue(k + 1);
+        const int s = start + k * chunk;
+        const int n = min(chunk, end - s);
         if constexpr (COUNTS) visited += n;
         for (int j = 0; j < n; ++j)
-            resolve<PEEL2>(smem + j * NC, s + j, px, le, d16);
-        thresh = block_max(PEEL2 ? px.l2.zbuf : px.l1.zbuf, red);
+            resolve<PEEL2>(buf + j * NC, s + j, col, le, d16);
+        wmax = warp_max(column_max<PEEL2>(col));
+        if (nwarps > 1 && lane == 0) red[k & 1][warp] = wmax;
     }
+    cp_async_wait_all();  // a chunk prefetched past the exit
     if constexpr (COUNTS) {
         if (threadIdx.x == 0) p.nvis[t] = visited;
     }
@@ -206,29 +350,47 @@ __global__ void visibility_kernel(Params p) {
     for (int j = 0; j < nb; ++j) {
         const int* bb = p.broad_tiles + 4 * j;
         if (gx >= bb[0] && gx <= bb[2] && gy >= bb[1] && gy <= bb[3])
-            resolve<PEEL2>(p.broad_ch + (size_t)j * NC, p.owner_base + j, px,
+            resolve<PEEL2>(p.broad_ch + (size_t)j * NC, p.owner_base + j, col,
                            le, d16);
     }
 
-    if (inside) {
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+        const int y = y0 + i * groups;
+        if (!x_in || y >= p.fb_h) continue;
         const size_t o = (size_t)y * p.fb_w + x;
-        p.owner[o] = px.l1.owner;
-        p.z[o] = px.l1.zbuf;
-        p.order[o] = px.l1.obuf;
-        p.uw[o] = px.l1.uw;
-        p.vw[o] = px.l1.vw;
-        p.iw[o] = px.l1.iw;
-        p.tex[o] = px.l1.tex;
+        const Layer& a = col.l1[i];
+        p.owner[o] = a.owner;
+        p.z[o] = a.zbuf;
+        p.order[o] = a.obuf;
+        p.uw[o] = a.uw;
+        p.vw[o] = a.vw;
+        p.iw[o] = a.iw;
+        p.tex[o] = a.tex;
         if constexpr (PEEL2) {
-            p.owner2[o] = px.l2.owner;
-            p.z2[o] = px.l2.zbuf;
-            p.order2[o] = px.l2.obuf;
-            p.uw2[o] = px.l2.uw;
-            p.vw2[o] = px.l2.vw;
-            p.iw2[o] = px.l2.iw;
-            p.tex2[o] = px.l2.tex;
+            const Layer& b = col.l2[i];
+            p.owner2[o] = b.owner;
+            p.z2[o] = b.zbuf;
+            p.order2[o] = b.obuf;
+            p.uw2[o] = b.uw;
+            p.vw2[o] = b.vw;
+            p.iw2[o] = b.iw;
+            p.tex2[o] = b.tex;
         }
     }
+}
+
+template <bool PEEL2, bool COUNTS>
+cudaError_t launch(const Params& p, int ntiles, int threads, cudaStream_t st) {
+    auto kern = visibility_kernel<PEEL2, COUNTS>;
+    const size_t smem = 2 * (size_t)p.chunk * NC * sizeof(float);
+    if (smem > 32 * 1024) {  // with the static part, past the default 48 KB
+        const cudaError_t err = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+    }
+    kern<<<ntiles, threads, smem, st>>>(p);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -238,28 +400,34 @@ extern "C" int ty_rasterize_visibility(
     const int* broad_tiles, const int* nbroad, int B, const float* depth0,
     int fb_w, int fb_h, int tile_w, int tile_h, int grid_w, int grid_h,
     int scx, int scy, int scw, int sch,
-    int owner_base, int chunk, int le, int d16,
+    int owner_base, int chunk, int le, int d16, int threads, int ppt,
     int* owner, float* z, float* order, float* uw, float* vw, float* iw,
     int* tex,
     int* owner2, float* z2, float* order2, float* uw2, float* vw2, float* iw2,
-    int* tex2, int* nvis, void* stream) {
+    int* tex2, int* nvis, int* tile_order, void* stream) {
     // layer-2 maps select the peel2 instance, nvis the counts instance
     Params p{tile_start, entries, broad_ch, broad_tiles, nbroad, B, depth0,
              fb_w, fb_h, tile_w, tile_h, grid_w, grid_h, scx, scy, scw, sch,
              owner_base, chunk, le, d16, owner, z, order, uw, vw, iw, tex,
-             owner2, z2, order2, uw2, vw2, iw2, tex2, nvis};
+             owner2, z2, order2, uw2, vw2, iw2, tex2, nvis, tile_order};
     if (owner2 != nullptr && nvis != nullptr) return (int)cudaErrorInvalidValue;
+    // the geometry of ops/raster_cuda.py::k3_launch: PPT rows of one column
+    // a thread, whole warps or one partial warp of a power-of-two size
+    if (chunk <= 0 || tile_w <= 0 || ppt != PPT || threads <= 0
+        || tile_h % ppt != 0 || threads * ppt != tile_w * tile_h
+        || threads > 32 * MAX_WARPS
+        || (threads >= 32 ? threads % 32 : threads & (threads - 1)) != 0)
+        return (int)cudaErrorInvalidValue;
+    if ((reinterpret_cast<uintptr_t>(entries) & 15) != 0)
+        return (int)cudaErrorMisalignedAddress;
     const int ntiles = grid_w * grid_h;
-    if (ntiles > 0) {
-        const size_t smem = (size_t)chunk * NC * sizeof(float);
-        const dim3 grid(ntiles), block(tile_w * tile_h);
-        cudaStream_t st = (cudaStream_t)stream;
-        if (owner2 != nullptr)
-            visibility_kernel<true, false><<<grid, block, smem, st>>>(p);
-        else if (nvis != nullptr)
-            visibility_kernel<false, true><<<grid, block, smem, st>>>(p);
-        else
-            visibility_kernel<false, false><<<grid, block, smem, st>>>(p);
-    }
-    return (int)cudaGetLastError();
+    if (ntiles <= 0) return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    tile_order_kernel<<<1, ORDER_THREADS, 0, st>>>(tile_start, ntiles,
+                                                    tile_order);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (owner2 != nullptr) return (int)launch<true, false>(p, ntiles, threads, st);
+    if (nvis != nullptr) return (int)launch<false, true>(p, ntiles, threads, st);
+    return (int)launch<false, false>(p, ntiles, threads, st);
 }

@@ -4,7 +4,11 @@
 ``fused_setup`` runs the CUDA kernel ``csrc/fused_setup.cu`` on CUDA tensors
 and the plain PyTorch version ``fused_setup_reference`` on CPU tensors.  Both
 read the cached row-major corner table [T, 3, 5] and index ``mvps[draw]``
-directly, so there is no draw-count limit and no field-major relayout.
+directly, so there is no draw-count limit and no field-major relayout.  The
+kernel stages a block of corner rows in shared memory and writes the
+block's channel rows back as one contiguous run; it also counts the
+crossers, so the launch is the wrapper's only work on the card besides
+zeroing that count.
 
 Semantics: transform, then near-plane cull with a per-triangle ``crossed``
 flag (crossers are culled here; rendering/passes.py re-clips them), then
@@ -110,10 +114,12 @@ def fused_setup(corners, tri_draw, tri_tex, tri_valid, mvps, cam_valid,
     crossed = torch.empty((T,), dtype=torch.bool, device=dev)
     tile_lo = torch.empty((T, 2), dtype=torch.int32, device=dev)
     tile_hi = torch.empty((T, 2), dtype=torch.int32, device=dev)
+    # the kernel adds its crossers to this count, a warp at a time
+    crossings = torch.zeros((), dtype=torch.int32, device=dev)
     su = S.TriangleSetup(valid=valid, channels=channels, tile_lo=tile_lo,
                          tile_hi=tile_hi)
     if T == 0:
-        return su, torch.zeros((), dtype=torch.int32, device=dev), crossed
+        return su, crossings, crossed
     cull, ccw = _cull_code(cull_mode, front_face)
     lib = _build.load()
     global launches
@@ -125,7 +131,7 @@ def fused_setup(corners, tri_draw, tri_tex, tri_valid, mvps, cam_valid,
         tile_w.bit_length() - 1, tile_h.bit_length() - 1, grid_w, grid_h,
         cull, ccw,
         channels.data_ptr(), valid.data_ptr(), tile_lo.data_ptr(),
-        tile_hi.data_ptr(), crossed.data_ptr(),
+        tile_hi.data_ptr(), crossed.data_ptr(), crossings.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_setup")
-    return su, crossed.to(torch.int32).sum().to(torch.int32), crossed
+    return su, crossings, crossed
