@@ -36,7 +36,27 @@ Phases, one printed line each or more; any failure exits non-zero:
    engaged; peel2 not engaged (above the policy's triangle bound); then no
    overflow, one launch of each kernel per frame, identical images for the
    same frame time, and the steady frame time;
-10. probes: the probe tools' entry points (tyleri_tpu_torch/tools/, the
+10. ui: a UI overlay of 128 quads (256 triangles: a 480x270 panel of
+   solid quads, two rows of glyph quads on a 16x16 texture) over config 5
+   at 1920x1080, on phase 9's converged plan, at scale factors 1 and 2:
+   where the UI drew, the frame equals the overlay-only frame (which holds
+   to the f64 oracle within the golden budget), elsewhere the UI-free
+   frame, bit for bit; K3 on the frame's table with the UI's depth as its
+   incoming depth, bit-equal to its plain version; one K1+K2 and one K3
+   launch a frame; steady frame times with and without the overlay in
+   turns (the UI pass may read the host once a frame), and the UI pass's
+   host time;
+11. exact: exact mode (blend_parity="exact") for configs 1 and 2 and for
+   config 4 at 1920x1080 against the sequential oracle, no kernel
+   launched, config 4's deviation beside peel2's and the single layer's
+   from phase 8, and its frame's seconds;
+12. depth-states: config 2 at 800x600 under ALWAYS, NEVER, the test off
+   and the write off (LESS_OR_EQUAL), resolved by the last-passing
+   resolve, against the oracle that blends each pixel's surviving fragment
+   once, with one K1+K2 and no K3 launch a frame; then with
+   max_sampler_anisotropy(8): 8 taps reach the plan, the frame renders,
+   and the 8-tap shade on the card equals the same call on the CPU;
+13. probes: the probe tools' entry points (tyleri_tpu_torch/tools/, the
    port of the TPU tools P4, P7, P6, P1, P3, P2 and P5) time their
    variants at full width, each over a CUDA graph of 20 calls, with its
    bound (P4 beside torch.index_select, P5's transpose beside
@@ -48,7 +68,7 @@ Phases, one printed line each or more; any failure exits non-zero:
    tool's table within exp_mxu.compare's tolerance, the share of pixels
    with another winner printed.
 
-Every path (7, 8, 9, 10 and the counter's measurement in 5) runs with the
+Every path (7 to 13 and the counter's measurement in 5) runs with the
 kernels' launch counts set to 0 just before it and read just after.  Each
 kernel's bound is the largest of its bytes (each input read once, each
 output written once, what this run's data needs) over 3.35 TB/s, its f32
@@ -573,15 +593,15 @@ def converge(win, rig, t, max_frames=160, orbit=()):
     return frames, time.perf_counter() - t0, seen
 
 
-def steady(win, rig, t, messages, frames=30):
-    """The converged plan's steady frame time: CUDA events on the frame
-    loop's stream and the host clock around ``frames`` renders, with the
-    card's sync debug mode on.  Returns (ms, host_ms, image)."""
+def steady(win, rig, t, messages, frames=30, syncs_per_frame=0):
+    """The converged plan's steady frame time: CUDA events ordered through
+    the device's queue pool and the host clock around ``frames`` renders,
+    with the card's sync debug mode on; at most ``syncs_per_frame``
+    synchronizing calls a frame (the UI pass reads its triangles' boxes
+    once).  Returns (ms, host_ms, image)."""
     rf = win.rendering_function
-    stream = win.render_device.queue.stream
+    pool = win.render_device.present_queues
     n_msgs = len(messages)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     render_frames(win, rig, [t] * 3)   # the last fits reach the plan
     plan_before = rf.plan
     # the frame loop must not wait on its own stream: a synchronizing op
@@ -590,12 +610,13 @@ def steady(win, rig, t, messages, frames=30):
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as syncs:
         warnings.simplefilter("always")
-        start.record(stream)
+        # events ordered after every frame submitted through the pool
+        start = pool.event(enable_timing=True)
         h0 = time.perf_counter()
         for _ in range(frames):
             rig.fill(win.get_render_scene(), t)
             win.render()
-        end.record(stream)
+        end = pool.event(enable_timing=True)
         img_a = win.flush()
         host_ms = (time.perf_counter() - h0) * 1e3 / frames
     torch.cuda.set_sync_debug_mode("default")
@@ -607,8 +628,9 @@ def steady(win, rig, t, messages, frames=30):
                 if m.message_id == "capacity-overflow"]
     if overflow:
         raise AssertionError(f"overflow after convergence: {overflow[0]}")
-    if syncs:
-        raise AssertionError(f"the frame loop synchronized: {syncs[0].message}")
+    if len(syncs) > syncs_per_frame * frames:
+        raise AssertionError(f"the frame loop synchronized {len(syncs)} times "
+                             f"in {frames} frames: {syncs[0].message}")
     if rf.plan != plan_before:
         raise AssertionError("the plan changed during the steady window")
     if not np.array_equal(img_a, img_b):
@@ -689,6 +711,7 @@ def phase_config4(build_device, resolution, launches, n_instances=100):
     log("config4", f"{resolution[0]}x{resolution[1]} against the sequential "
         f"f64 oracle ({oracle_s:.1f} s): {off['auto']:.4%} px more than 1 u8 "
         f"off with peel2, {off['fast']:.4%} with one layer")
+    return off, want
 
 
 def phase_sponza(build_device, resolution, launches, grid_n=420):
@@ -734,6 +757,360 @@ def phase_sponza(build_device, resolution, launches, grid_n=420):
         f" {mtris:.1f} Mtris/s), {host_ms:.3f} ms/frame by host clock; "
         f"no synchronizing call in 30 frames; no overflow; identical images; "
         f"{covered:.1%} px covered")
+    return dev, rig, win, messages
+
+
+class WithOverlay:
+    """A scene rig whose frames also carry a UI overlay (``elements``, the
+    RenderScene.add_ui list; [] draws none)."""
+
+    def __init__(self, rig, elements):
+        self.rig, self.elements = rig, elements
+        self.resolution = rig.resolution
+        self.triangle_count = rig.triangle_count
+
+    def fill(self, scene, t):
+        self.rig.fill(scene, t)
+        scene.add_ui(self.elements)
+
+
+def ui_overlay(device, seed=11):
+    """The overlay of the UI phase, in window points: a 480x270 panel of 64
+    solid quads (8 x 8 cells) on a 1x1 white texture, per-corner colors,
+    alpha 0.5 to 1; two rows of 32 glyph-sized quads (16 to 32 points) on a
+    16x16 texture below it.  128 quads, 256 triangles."""
+    rng = np.random.default_rng(seed)
+    white, glyph = device.create_textures([
+        ((1, 1), lambda b: b.__setitem__(slice(None), 1.0)),
+        ((16, 16), lambda b: b.__setitem__(
+            slice(None), rng.random((16, 16, 4), np.float32)))])
+
+    def quads(boxes):
+        verts, idx = [], []
+        for q, (x0, y0, x1, y1) in enumerate(boxes):
+            for (x, y), uv in zip(((x0, y0), (x1, y0), (x1, y1), (x0, y1)),
+                                  ((0, 0), (1, 0), (1, 1), (0, 1))):
+                verts.append([x, y, *uv, *rng.uniform(0.2, 1.0, 3),
+                              rng.uniform(0.5, 1.0)])
+            idx += [4 * q + k for k in (0, 1, 2, 0, 2, 3)]
+        return np.asarray(verts, np.float32), np.asarray(idx, np.uint32)
+
+    cw, ch = 480 / 8, 270 / 8
+    panel = [(20 + cw * i, 20 + ch * j, 20 + cw * (i + 1) - 2,
+              20 + ch * (j + 1) - 2) for j in range(8) for i in range(8)]
+    glyphs = []
+    for k in range(64):
+        w, h = rng.uniform(16, 32, 2)
+        x0, y0 = 20 + 28 * (k % 32), 310 + 40 * (k // 32)
+        glyphs.append((x0, y0, x0 + w, y0 + h))
+    return [(*quads(panel), white), (*quads(glyphs), glyph)]
+
+
+def phase_ui(sponza, launches, resolution):
+    """The UI overlay over config 5 at full size, after the plan converged
+    (phase 9's window): at scale factors 1 and 2, the frame decomposes into
+    the overlay-only frame (where the UI drew; it holds to the oracle) and
+    the UI-free frame (elsewhere, bit for bit); K3 on that frame's table
+    with the UI's depth as its incoming depth equals its plain version; the
+    steady frame time with and without the overlay, in turns."""
+    import tyleri_tpu_torch as tt
+    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
+    from tyleri_tpu_torch.rendering import forward
+    from tyleri_tpu_torch.testing.scene_oracle import ui_oracle
+
+    dev, rig, win, messages = sponza
+    rf = win.rendering_function
+    overlay = ui_overlay(dev)
+    W, H = resolution
+    n_tris = sum(len(i) for _, i, _ in overlay) // 3
+    if n_tris != rf.plan.ui_tri_cap:
+        raise AssertionError(f"{n_tris} UI triangles, ui_tri_cap "
+                             f"{rf.plan.ui_tri_cap}")
+
+    def record(cameras, ui, scale):
+        scene = tt.RenderScene()
+        if cameras:
+            rig.fill(scene, 0.0)
+        scene.add_ui(overlay if ui else [])
+        q = dev.present_queues.pop()
+        try:
+            with q.context():
+                frame = rf.record(dev, scene.render_resources, scale,
+                                  resolution)
+        finally:
+            dev.present_queues.push(q)
+        return frame, scene
+
+    for scale in (1.0, 2.0):
+        setup_cuda.reset_launches()
+        raster_cuda.reset_launches()
+        both, _ = record(True, True, scale)
+        counted = dict(raster_cuda.variant_launches,
+                       fused_setup=setup_cuda.launches)
+        if counted != dict(base=1, peel2=0, counts=0, fused_setup=1):
+            raise AssertionError(f"UI frame launches {counted}")
+        mesh, _ = record(True, False, scale)
+        alone, ui_scene = record(False, True, scale)
+        drew = both.order == 0
+        if not torch.equal(drew, alone.depth < 1.0):
+            raise AssertionError("the UI's pixels differ from the overlay's")
+        differ = [int((both.color[drew] != alone.color[drew]).any(-1).sum()),
+                  int((both.color[~drew] != mesh.color[~drew]).any(-1).sum()),
+                  int((both.depth[~drew] != mesh.depth[~drew]).sum())]
+        if any(differ):
+            raise AssertionError(f"scale {scale}: the UI frame differs from "
+                                 f"the overlay-only frame at {differ[0]} UI "
+                                 f"px, from the UI-free frame at "
+                                 f"{differ[1:]} px elsewhere")
+        t0 = time.perf_counter()
+        want, want_d = ui_oracle(dev, ui_scene.render_resources, rf.ui_state,
+                                 resolution, scale)
+        oracle_s = time.perf_counter() - t0
+        got = alone.color.cpu().numpy()
+        bad = float((np.abs(got - want).max(axis=-1) > 1e-3).mean())
+        # f32 and f64 edge decisions of quads off the pixel grid
+        cover = float(((alone.depth.cpu().numpy() == 0) != (want_d == 0))
+                      .mean())
+        if bad > BUDGET or cover > BUDGET:
+            raise AssertionError(f"scale {scale}: the overlay is {bad:.4%} "
+                                 f"px off the oracle, its coverage "
+                                 f"{cover:.4%}")
+        log("ui", f"scale {scale:g}: {int(drew.sum())} px of UI "
+            f"({float(drew.float().mean()):.2%}) over sponza at {W}x{H}; the "
+            f"frame equals the overlay-only frame there and the UI-free frame "
+            f"elsewhere, bit for bit; the overlay {bad:.4%} px more than 1e-3 "
+            f"off the f64 oracle, its coverage {cover:.4%} px (budget "
+            f"{BUDGET:.2%}; {oracle_s:.1f} s); launches {counted}")
+
+    # K3 resolving against the UI's depth (scale 1) on this frame's table
+    _, sp = pass_inputs(dev, rig, resolution, 0.0)
+    binned, dims, _ = binned_pass(rf, sp)
+    alone, _ = record(False, True, 1.0)
+    ui_depth = alone.depth
+    kw = dict(fb_w=W, fb_h=H, depth_state=rf.mesh_state.depth,
+              chunk=rf.plan.raster.chunk, **dims)
+    got = raster_cuda.rasterize_visibility(binned, ui_depth, sp["scissor"],
+                                           **kw)
+    want = raster_cuda.rasterize_visibility_stream_reference(
+        binned, ui_depth, sp["scissor"], **kw)
+    if not layers_bit_equal(got, want):
+        bad = int(((got.depth != want.depth) | (got.owner != want.owner))
+                  .sum())
+        raise AssertionError(f"K3 on the UI's depth differs from its plain "
+                             f"version at {bad} px")
+    ui_px = ui_depth == 0
+    th, tw = dims["tile_h"], dims["tile_w"]
+    whole = ui_px[:H // th * th, :W // tw * tw].reshape(H // th, th, W // tw,
+                                                         tw)
+    log("ui", f"K3 on the sponza table with the UI's depth as its incoming "
+        f"depth ({int(ui_px.sum())} px at z = 0, "
+        f"{int(whole.all(3).all(1).sum())} tiles all UI): bit-equal to its "
+        f"plain version; {int(((got.owner >= 0) & ui_px).sum())} UI px won "
+        f"by a mesh fragment")
+    del binned, sp, got, want
+
+    # steady frames with and without the overlay, in turns; the UI pass's
+    # host time (its one synchronizing read waits for the stream)
+    ui_host = []
+    plain_ui_pass = forward.ui_pass
+
+    def timed_ui_pass(*a, **k):
+        t = time.perf_counter()
+        out = plain_ui_pass(*a, **k)
+        ui_host.append(time.perf_counter() - t)
+        return out
+
+    times = {"overlay": [], "none": []}
+    forward.ui_pass = timed_ui_pass
+    try:
+        for which in ("overlay", "none", "none", "overlay"):
+            frames = WithOverlay(rig, overlay if which == "overlay" else [])
+            setup_cuda.reset_launches()
+            raster_cuda.reset_launches()
+            ms, host_ms, _ = steady(win, frames, 0.0, messages,
+                                    syncs_per_frame=int(which == "overlay"))
+            n = 3 + 30 + 1
+            counted = dict(raster_cuda.variant_launches,
+                           fused_setup=setup_cuda.launches)
+            if counted != dict(base=n, peel2=0, counts=0, fused_setup=n):
+                raise AssertionError(f"ui {which}: launches {counted} for "
+                                     f"{n} frames")
+            key = f"ui_{which}"
+            launches[key] = {k: launches.get(key, {}).get(k, 0) + v
+                             for k, v in counted.items()}
+            times[which].append((ms, host_ms))
+    finally:
+        forward.ui_pass = plain_ui_pass
+    for which in ("overlay", "none"):
+        (a, ha), (b, hb) = times[which]
+        log("ui", f"config 5 {which}: steady {a:.3f} and {b:.3f} ms/frame by "
+            f"CUDA events (in turns), {ha:.3f} and {hb:.3f} ms/frame by host "
+            f"clock; one K1+K2 and one K3 base launch a frame")
+    log("ui", f"the UI pass's host time {1e3 * np.mean(ui_host):.3f} ms a "
+        f"frame (mean of {len(ui_host)}; its one synchronizing read waits "
+        f"for the frames before it)")
+
+
+def phase_exact(build_device, launches, resolution, config4, n_instances=100,
+                max_seconds=60.0):
+    """Exact mode: configs 1 and 2, then config 4 at 1920x1080, against the
+    sequential oracle; no kernel launch.  ``config4`` = (deviations of
+    peel2 and the single layer, the 1080p sequential oracle image) from
+    phase 8."""
+    import tyleri_tpu_torch as tt
+    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
+    from tyleri_tpu_torch.testing.scene_oracle import (
+        mismatch_fraction,
+        scene_oracle_u8,
+    )
+
+    for name, make, t in (("config1", tt.scenes.config1_triangle, 0.0),
+                          ("config2", tt.scenes.config2_cube, 0.9)):
+        dev = build_device()
+        rig = make(dev)
+        win = tt.RenderWindow(dev, resolution=rig.resolution,
+                              present_mode="immediate", blend_parity="exact")
+        setup_cuda.reset_launches()
+        raster_cuda.reset_launches()
+        img = render_frames(win, rig, [t])
+        if (setup_cuda.launches, raster_cuda.launches()) != (0, 0):
+            raise AssertionError(f"exact {name} launched kernels")
+        scene = tt.RenderScene()
+        rig.fill(scene, t)
+        want = scene_oracle_u8(dev, scene.render_resources,
+                               win.rendering_function.mesh_state,
+                               rig.resolution, sequential=True)
+        bad = mismatch_fraction(img, want)
+        if bad > BUDGET:
+            raise AssertionError(f"exact {name}: {bad:.4%} px off the "
+                                 f"sequential oracle")
+        log("exact", f"{name} {rig.resolution[0]}x{rig.resolution[1]}: "
+            f"{bad:.4%} px off the sequential oracle (budget {BUDGET:.2%}); "
+            f"no kernel launched")
+
+    off, want = config4
+    dev = build_device()
+    rig = config4_rig(dev, resolution, n_instances)
+    win = tt.RenderWindow(dev, resolution=resolution,
+                          present_mode="immediate", blend_parity="exact")
+    setup_cuda.reset_launches()
+    raster_cuda.reset_launches()
+    t0 = time.perf_counter()
+    img = render_frames(win, rig, [0.5])
+    seconds = time.perf_counter() - t0
+    launches["exact"] = dict(raster_cuda.variant_launches,
+                             fused_setup=setup_cuda.launches)
+    if (setup_cuda.launches, raster_cuda.launches()) != (0, 0):
+        raise AssertionError(f"exact config 4 launched {launches['exact']}")
+    bad = mismatch_fraction(img, want, 1)
+    if bad > BUDGET:
+        raise AssertionError(f"exact config 4: {bad:.4%} px more than 1 u8 "
+                             f"off the sequential oracle")
+    if seconds > max_seconds:
+        raise AssertionError(f"exact config 4 took {seconds:.1f} s")
+    log("exact", f"config4 {resolution[0]}x{resolution[1]}, "
+        f"{rig.triangle_count} tris in {n_instances} draws, one frame in "
+        f"{seconds:.2f} s: {bad:.4%} px more than 1 u8 off the sequential "
+        f"oracle, against {off['auto']:.4%} with peel2 and {off['fast']:.4%}"
+        f" with one layer (phase 8); no kernel launched")
+
+
+DEPTH_STATES = {
+    "always": dict(compare_op="ALWAYS"),
+    "never": dict(compare_op="NEVER"),
+    "test_off": dict(test_enable=False),
+    "write_off_le": dict(write_enable=False, compare_op="LESS_OR_EQUAL"),
+}
+SHADE_TOL = 1e-6   # the shade's CUDA result against the same ops on the CPU
+
+
+def phase_depth_states(build_device, launches, resolution=(800, 600),
+                       frames=2):
+    """Config 2 under the depth states K3 does not take (the last-passing
+    resolve): against the oracle that blends each pixel's surviving
+    fragment once, the visibility path's rule; one K1+K2 and no K3 launch a
+    frame.  Then config 2 with max_sampler_anisotropy(8): 8 taps reach the
+    plan, the frame renders, and the anisotropic shade on the card equals
+    the same call on the CPU."""
+    import dataclasses
+
+    import tyleri_tpu_torch as tt
+    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
+    from tyleri_tpu_torch.ops.shade import shade_visibility
+    from tyleri_tpu_torch.ops.visibility import VisibilityBuffer
+    from tyleri_tpu_torch.resource.textures import texture_tensors
+    from tyleri_tpu_torch.testing.scene_oracle import (
+        mismatch_fraction,
+        scene_oracle_u8,
+    )
+
+    for name, change in DEPTH_STATES.items():
+        msgs = []
+        dev = build_device(callback=msgs.append)
+        rig = tt.scenes.config2_cube(dev, resolution)
+        win = tt.RenderWindow(dev, resolution=resolution,
+                              present_mode="immediate")
+        rf = win.rendering_function
+        change = {k: (tt.CompareOp[v] if k == "compare_op" else v)
+                  for k, v in change.items()}
+        rf.mesh_state = dataclasses.replace(rf.mesh_state, depth=(
+            dataclasses.replace(rf.mesh_state.depth, **change)))
+        setup_cuda.reset_launches()
+        raster_cuda.reset_launches()
+        img = render_frames(win, rig, [0.9] * frames)
+        counted = dict(raster_cuda.variant_launches,
+                       fused_setup=setup_cuda.launches)
+        launches[f"depth_{name}"] = counted
+        if (raster_cuda.launches(), setup_cuda.launches) != (0, frames):
+            raise AssertionError(f"{name}: launches {counted} for {frames} "
+                                 f"frames")
+        if rf.plan.raster.peel2 or not any(m.message_id == "k3-envelope"
+                                           for m in msgs):
+            raise AssertionError(f"{name}: peel2 {rf.plan.raster.peel2}, "
+                                 f"messages {[m.message_id for m in msgs]}")
+        scene = tt.RenderScene()
+        rig.fill(scene, 0.9)
+        want = scene_oracle_u8(dev, scene.render_resources, rf.mesh_state,
+                               resolution)
+        bad = mismatch_fraction(img, want)
+        covered = float((img[..., :3] > 0).any(-1).mean())
+        if bad > BUDGET or (covered == 0) != (name == "never"):
+            raise AssertionError(f"{name}: {bad:.4%} px off the oracle, "
+                                 f"{covered:.1%} covered")
+        log("depth-states", f"config2 {resolution[0]}x{resolution[1]} "
+            f"{name}: {bad:.4%} px off the oracle (budget {BUDGET:.2%}), "
+            f"{covered:.1%} px covered; launches {counted}")
+
+    dev = build_device(anisotropy=8)
+    rig = tt.scenes.config2_cube(dev, resolution)
+    win = tt.RenderWindow(dev, resolution=resolution,
+                          present_mode="immediate")
+    taps = win.rendering_function.plan.raster.aniso_taps
+    img = render_frames(win, rig, [0.9])
+    if taps != 8 or not img[..., :3].any():
+        raise AssertionError(f"anisotropy: taps {taps}")
+    rf, sp = pass_inputs(dev, rig, resolution, 0.9)
+    binned, dims, _ = binned_pass(rf, sp)
+    W, H = resolution
+    vis = raster_cuda.rasterize_visibility(
+        binned, torch.ones((H, W), device=dev.device), sp["scissor"],
+        fb_w=W, fb_h=H, depth_state=rf.mesh_state.depth, **dims)
+    tex = texture_tensors(dev.memory_allocator.texture_arena, dev.device)
+    dst = torch.zeros((H, W, 4), device=dev.device)
+    got = shade_visibility(vis, *tex, rf.mesh_state.blend, dst, aniso_taps=8)
+    want = shade_visibility(VisibilityBuffer(*(m.cpu() for m in vis)),
+                            *(t.cpu() for t in tex), rf.mesh_state.blend,
+                            dst.cpu(), aniso_taps=8)
+    err = float((got.cpu() - want).abs().max())
+    plain = shade_visibility(vis, *tex, rf.mesh_state.blend, dst)
+    moved = float((got - plain).abs().amax(-1).gt(1 / 255).float().mean())
+    if err > SHADE_TOL:
+        raise AssertionError(f"anisotropic shade: card and CPU differ by "
+                             f"{err:.3g}")
+    log("depth-states", f"config2 with max_sampler_anisotropy(8): "
+        f"aniso_taps {taps}, the frame renders; the 8-tap shade on the card "
+        f"equals the CPU's within {err:.3g} (tolerance {SHADE_TOL:g}) and "
+        f"moves {moved:.2%} px more than 1 u8 off the bilinear shade")
 
 
 # the probe kernels, the TPU kernels they replace, the tool and variant
@@ -1018,8 +1395,10 @@ def main() -> int:
         f"{k} {r} ({s} B)"
         for k, (r, s) in sorted(_build.kernel_resources().items())))
 
-    def build_device(callback=None):
+    def build_device(callback=None, anisotropy=None):
         b = RenderDeviceBuilder().validation_level(ValidationLevel.WARNING)
+        if anisotropy:
+            b = b.max_sampler_anisotropy(anisotropy)
         return b.debug_callback(callback).build()
 
     def phase(name, fn, *args, **kw):
@@ -1044,8 +1423,15 @@ def main() -> int:
     phase("k3-peel2", phase_peel2, build_device, SPONZA_RES, records)
     torch.cuda.empty_cache()
     phase("configs 1-3", phase_small_configs, build_device, launches)
-    phase("config4", phase_config4, build_device, SPONZA_RES, launches)
-    phase("config5", phase_sponza, build_device, SPONZA_RES, launches)
+    config4 = phase("config4", phase_config4, build_device, SPONZA_RES,
+                    launches)
+    sponza = phase("config5", phase_sponza, build_device, SPONZA_RES,
+                   launches)
+    phase("ui", phase_ui, sponza, launches, SPONZA_RES)
+    del sponza
+    torch.cuda.empty_cache()
+    phase("exact", phase_exact, build_device, launches, SPONZA_RES, config4)
+    phase("depth-states", phase_depth_states, build_device, launches)
     torch.cuda.empty_cache()
     probe_kernels = phase("probes", phase_probes, device, card, records,
                           launches, sponza_gather)

@@ -4,8 +4,9 @@ reference blends every mesh fragment in submission order
 (common_pipeline.rs:117-131); "auto" engages the two-layer blend (peel2) up
 to BLEND_PARITY_PEEL2_MAX_TRIS triangles wherever K3 supports the depth
 state, and otherwise ships the single layer and reports the deviation once;
-"peel2" and "fast" pin it.  The port runs K3 or its plain version on every
-path, so there is no path where peel2 would be inert.
+"peel2" and "fast" pin it; exact mode blends every fragment in order and
+takes neither.  Depth states K3 does not take resolve on the last-passing
+path, where "auto" leaves peel2 off and reports the deviation.
 """
 
 import dataclasses
@@ -98,10 +99,13 @@ def test_pinned_modes(monkeypatch):
                                           blend_parity="fast")
     assert not _plan_for(rf_fast, dev, scene).peel2
     assert msgs == ["blend-order-deviation"]
-    # exact mode is not ported; an unknown policy is an error
-    with pytest.raises(NotImplementedError):
-        tt.ForwardRenderingFunction(dev, tt.ImageViewSwapchain(RES),
-                                    blend_parity="exact")
+    # "exact" is exact mode, with no peel2 and no message; an unknown
+    # policy is an error
+    rf_exact = tt.ForwardRenderingFunction(dev, tt.ImageViewSwapchain(RES),
+                                           blend_parity="exact")
+    assert rf_exact.plan.raster.exact
+    assert not _plan_for(rf_exact, dev, scene).peel2
+    assert msgs == ["blend-order-deviation"]
     with pytest.raises(ValueError):
         tt.ForwardRenderingFunction(dev, tt.ImageViewSwapchain(RES),
                                     blend_parity="bogus")

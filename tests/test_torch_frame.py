@@ -33,12 +33,15 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import tyleri_tpu as ty
 import tyleri_tpu_torch as tt
+import tyleri_tpu_torch.rendering.forward
 from tyleri_tpu.models import scenes
 from tyleri_tpu.scene.render_scene import RenderScene
 from tyleri_tpu.window.render_window import RenderWindow as JaxWindow
+from tyleri_tpu.window.swapchain import ImageViewSwapchain as JaxSwapchain
 from tyleri_tpu_torch.interop import (
     from_jax,
     load_render_device,
@@ -233,3 +236,202 @@ def test_profile_stage_timers_cover_the_frame():
     assert set(host) == {name for _, name in STAGES}
     assert all(s > 0 for s in host.values())
     assert [getattr(owner, name) for owner, name in STAGES] == before
+
+
+def ui_overlay(white, glyph, n=6, seed=4, extent=(64, 64)):
+    """UI elements in window points: solid quads with per-corner colors and
+    alpha on a 1x1 white texture, overlapping, and glyph-sized quads on a
+    16x16 texture; [(vertices [4k, 8], indices, texture), ...]."""
+    rng = np.random.default_rng(seed)
+    W, H = extent
+    elements = []
+    for tex, size in ((white, (12, 30)), (glyph, (6, 12))):
+        verts, idx = [], []
+        for q in range(n):
+            x0, y0 = rng.uniform(0, W - size[1]), rng.uniform(0, H - size[1])
+            x1 = x0 + rng.uniform(*size)
+            y1 = y0 + rng.uniform(*size)
+            for (x, y), uv in zip(((x0, y0), (x1, y0), (x1, y1), (x0, y1)),
+                                  ((0, 0), (1, 0), (1, 1), (0, 1))):
+                verts.append([x, y, *uv, *rng.uniform(0.3, 1.0, 3),
+                              rng.uniform(0.5, 1.0)])
+            b = 4 * q
+            idx += [b, b + 1, b + 2, b, b + 2, b + 3]
+        elements.append((np.asarray(verts, np.float32),
+                         np.asarray(idx, np.uint32), tex))
+    return elements
+
+
+def ui_twins(make, res, blend_parity="fast"):
+    """The JAX and port rendering functions over one uploaded scene plus
+    the overlay's two textures; the port starts from the JAX plan."""
+    jdev = ty.RenderDeviceBuilder().build()
+    rig = make(jdev, res)
+    rng = np.random.default_rng(1)
+    white, glyph = jdev.create_textures([
+        ((1, 1), lambda b: b.__setitem__(slice(None), 1.0)),
+        ((16, 16), lambda b: b.__setitem__(
+            slice(None), rng.random((16, 16, 4), np.float32)))])
+    tdev = tt.RenderDeviceBuilder().device("cpu").build()
+    load_render_device(tdev, jdev)
+    jrf = ty.ForwardRenderingFunction(jdev, JaxSwapchain(res),
+                                      blend_parity=blend_parity)
+    trf = tt.ForwardRenderingFunction(tdev, tt.ImageViewSwapchain(res),
+                                      blend_parity=blend_parity)
+    trf.plan = dataclasses.replace(
+        trf.plan, raster=raster_plan_from_jax(jrf.plan.raster))
+    return rig, jdev, tdev, jrf, trf, (white, glyph)
+
+
+UI_CONFIGS = {
+    "config1": (scenes.config1_triangle, (64, 64), 0.0),
+    "config2": (scenes.config2_cube, (96, 72), 0.9),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UI_CONFIGS))
+def test_ui_frame_matches_jax(name):
+    """The UI overlay first, then the mesh: the port's recorded frame
+    against the JAX package's, color within the golden budget and the
+    order map (0 where the UI drew) equal."""
+    make, res, t = UI_CONFIGS[name]
+    rig, jdev, tdev, jrf, trf, (white, glyph) = ui_twins(make, res)
+    scene = RenderScene()
+    rig.fill(scene, t)
+    scene.add_ui(ui_overlay(white, glyph, extent=res))
+    want = jrf.record(jdev, scene.render_resources, 1.0, res)
+    got = trf.record(tdev, from_jax(scene).render_resources, 1.0, res)
+    assert trf.plan.has_ui and jrf.plan.has_ui
+    u8 = tt.rendering.forward.quantize_unorm8
+    w8 = u8(torch.from_numpy(np.array(want.color)), True).numpy()
+    g8 = u8(got.color, True).numpy()
+    differ = mismatch_fraction(g8, w8)
+    print(f"{name} + UI: {differ:.4%} px differ from the JAX frame")
+    assert differ <= BUDGET
+    order = got.order.numpy()
+    np.testing.assert_array_equal(order, np.asarray(want.order))
+    assert (order == 0).mean() > 0.05 and (order >= 1).any()
+    # the UI wrote depth 0 where it drew; the mesh is visible elsewhere
+    np.testing.assert_array_equal(got.depth.numpy()[order == 0], 0.0)
+
+
+def test_ui_overlay_occludes_mesh():
+    """tests/test_scene_window.py:67-90 on the port's window."""
+    dev = tt.RenderDeviceBuilder().device("cpu").build()
+    rig = tt.scenes.config1_triangle(dev, (64, 64))
+    (white,) = dev.create_textures(
+        [((1, 1), lambda b: b.__setitem__(slice(None), 1.0))])
+    win = tt.RenderWindow(dev, resolution=(64, 64), present_mode="immediate")
+    quad = [((4, 4), (0, 0), (0, 1, 0, 1)), ((28, 4), (1, 0), (0, 1, 0, 1)),
+            ((28, 16), (1, 1), (0, 1, 0, 1)), ((4, 16), (0, 1), (0, 1, 0, 1))]
+    for _ in range(2):
+        scene = win.get_render_scene()
+        rig.fill(scene, 0.0)
+        scene.add_ui([(quad, [0, 1, 2, 0, 2, 3], white)])
+        win.render()
+    img = win.flush()
+    # the UI drew first with its depth write: no mesh blended in there
+    assert img[10, 16, 1] == 255 and img[10, 16, 0] == 0
+    assert img[40, 32, 0] > 0
+
+
+def test_ui_scale_factor_2_matches_oracle():
+    """tests/test_scene_window.py:91-137 on the port: at scale factor 2 a
+    quad authored in points covers twice the pixels."""
+    from tyleri_tpu_torch.testing import oracle
+    from tyleri_tpu_torch.utils import math3d
+
+    RES = (64, 64)
+    dev = tt.RenderDeviceBuilder().device("cpu").build()
+    (white,) = dev.create_textures(
+        [((1, 1), lambda b: b.__setitem__(slice(None), 1.0))])
+    rf = tt.ForwardRenderingFunction(dev, tt.ImageViewSwapchain(RES))
+    scene = tt.RenderScene()
+    quad = [((4, 4), (0, 0), (0, 1, 0, 1)), ((16, 4), (1, 0), (0, 1, 0, 1)),
+            ((16, 12), (1, 1), (0, 1, 0, 1)), ((4, 12), (0, 1), (0, 1, 0, 1))]
+    idx = [0, 1, 2, 0, 2, 3]
+    scene.add_ui([(quad, idx, white)])
+    frame = rf.record(dev, scene.render_resources, 2.0, RES)
+    got = frame.color.numpy()
+    assert got[20, 28, 1] > 0.5, "scale_factor division dropped or broken"
+    assert got[20, 36, 1] == 0.0, "quad overshoots its scaled extent"
+    pos = np.asarray([p for p, _, _ in quad], np.float64)
+    uvs = np.asarray([uv for _, uv, _ in quad], np.float64)
+    cols = np.asarray([c for _, _, c in quad], np.float64)
+    tri = np.asarray(idx).reshape(-1, 3)
+    w, h = RES
+    o_clip = oracle.make_ui_clip(pos, np.asarray(idx), (w / 2.0, h / 2.0))
+    o_color = np.zeros((h, w, 4), np.float64)
+    o_depth = np.ones((h, w), np.float64)
+    oracle.rasterize(o_color, o_depth, o_clip, uvs[tri], rf.ui_state,
+                     math3d.Viewport(0, 0, w, h), math3d.Rect2D(0, 0, w, h),
+                     texture=np.ones((1, 1, 4)), vertex_color=cols[tri])
+    bad = (np.abs(got - o_color).max(axis=-1) > 1e-3).mean()
+    assert bad < 0.003, f"{bad:.3%} pixels differ from the DPI-2 oracle"
+    np.testing.assert_allclose(frame.depth.numpy(), o_depth, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(UI_CONFIGS))
+def test_exact_frame_matches_jax_and_sequential_oracle(name):
+    """blend_parity="exact" in both packages: every fragment blends in draw
+    order, so both frames hold to the sequential oracle; no order map."""
+    make, res, t = UI_CONFIGS[name]
+    rig, jdev, tdev, jrf, trf, _ = ui_twins(make, res, blend_parity="exact")
+    assert trf.plan.raster.exact and jrf.plan.raster.exact
+    scene = RenderScene()
+    rig.fill(scene, t)
+    want = jrf.record(jdev, scene.render_resources, 1.0, res)
+    port = from_jax(scene)
+    got = trf.record(tdev, port.render_resources, 1.0, res)
+    u8 = tt.rendering.forward.quantize_unorm8
+    w8 = u8(torch.from_numpy(np.array(want.color)), True).numpy()
+    g8 = u8(got.color, True).numpy()
+    differ = mismatch_fraction(g8, w8)
+    oracle = scene_oracle_u8(tdev, port.render_resources, trf.mesh_state,
+                             res, sequential=True)
+    bad = mismatch_fraction(g8, oracle)
+    print(f"{name} exact: {differ:.4%} px differ from the JAX frame, "
+          f"{bad:.4%} from the sequential oracle")
+    assert differ <= BUDGET and bad <= BUDGET
+    assert (g8[..., :3] > 0).any()
+    np.testing.assert_array_equal(got.order.numpy(), -1.0)
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+def test_ui_frame_decomposes_into_overlay_and_mesh(scale):
+    """The UI draws first at z = 0, so the mesh fails under it: where the
+    UI drew, the frame equals the overlay-only frame, which holds to the
+    UI oracle; elsewhere it equals the UI-free frame, bit for bit."""
+    from tyleri_tpu_torch.testing.scene_oracle import ui_oracle
+
+    res = (96, 72)
+    dev = tt.RenderDeviceBuilder().device("cpu").build()
+    rig = tt.scenes.config2_cube(dev, res)
+    rng = np.random.default_rng(1)
+    white, glyph = dev.create_textures([
+        ((1, 1), lambda b: b.__setitem__(slice(None), 1.0)),
+        ((16, 16), lambda b: b.__setitem__(
+            slice(None), rng.random((16, 16, 4), np.float32)))])
+    overlay = ui_overlay(white, glyph, extent=(48, 36))
+    rf = tt.ForwardRenderingFunction(dev, tt.ImageViewSwapchain(res))
+
+    def frame(cameras, ui):
+        scene = tt.RenderScene()
+        if cameras:
+            rig.fill(scene, 0.9)
+        scene.add_ui(overlay if ui else [])
+        return rf.record(dev, scene.render_resources, scale, res), scene
+
+    (both, _), (mesh, _), (alone, ui_scene) = (
+        frame(True, True), frame(True, False), frame(False, True))
+    drew = both.order == 0
+    assert 0.05 < float(drew.float().mean()) < 0.9
+    assert torch.equal(drew, alone.depth < 1.0)
+    assert torch.equal(both.color[drew], alone.color[drew])
+    assert torch.equal(both.color[~drew], mesh.color[~drew])
+    assert torch.equal(both.depth[~drew], mesh.depth[~drew])
+    want, want_d = ui_oracle(dev, ui_scene.render_resources, rf.ui_state, res,
+                             scale)
+    bad = (np.abs(alone.color.numpy() - want).max(axis=-1) > 1e-3).mean()
+    assert bad <= BUDGET, f"{bad:.4%} px off the UI oracle"
+    np.testing.assert_array_equal(alone.depth.numpy() == 0, want_d == 0)

@@ -36,6 +36,26 @@ FRAME = textwrap.dedent("""
     rig.fill(win.get_render_scene(), 0.3)
     win.render()
     assert win.rendering_function.plan.lit and win.flush()[..., :3].any()
+    # a UI overlay over config 1, and config 2 in exact mode
+    rig = tt.scenes.config1_triangle(dev, (64, 64))
+    (white,) = dev.create_textures(
+        [((1, 1), lambda b: b.__setitem__(slice(None), 1.0))])
+    win = tt.RenderWindow(dev, resolution=rig.resolution,
+                          present_mode="immediate")
+    scene = win.get_render_scene()
+    rig.fill(scene, 0.0)
+    scene.add_ui([([((4, 4), (0, 0), (0, 1, 0, 1)),
+                    ((28, 4), (1, 0), (0, 1, 0, 1)),
+                    ((28, 16), (1, 1), (0, 1, 0, 1))], [0, 1, 2], white)])
+    win.render()
+    img = win.flush()
+    assert win.rendering_function.plan.has_ui and img[6, 20, 1] == 255
+    rig = tt.scenes.config2_cube(dev, (48, 32))
+    win = tt.RenderWindow(dev, resolution=rig.resolution,
+                          present_mode="immediate", blend_parity="exact")
+    rig.fill(win.get_render_scene(), 0.9)
+    win.render()
+    assert win.rendering_function.plan.raster.exact and win.flush()[..., :3].any()
     assert (setup_cuda.launches, raster_cuda.launches()) == (0, 0)
     # every probe tool
     import importlib, pkgutil
@@ -137,29 +157,39 @@ def test_cpu_tensors_never_launch_kernels():
     assert (setup_cuda.launches, raster_cuda.launches()) == (0, 0)
 
 
-@pytest.mark.parametrize("what", ["exact", "ui", "mesh"])
+@pytest.mark.parametrize("what", ["mesh", "pipeline_cache",
+                                  "greater_on_visibility"])
 def test_unported_paths_raise(what):
-    """Each path left for a later port says so instead of rendering
-    something else."""
-    import numpy as np
+    """What the port does not render says so instead of rendering
+    something else: multi-device rendering (not ported), the pipeline-cache
+    seed (no XLA compilation cache to seed), and GREATER on the visibility
+    path (the reference's own refusal; exact mode renders it)."""
+    import dataclasses
 
     import tyleri_tpu_torch as tt
 
     dev = tt.RenderDeviceBuilder().device("cpu").build()
-    kw = {"exact": dict(exact=True),
-          "mesh": dict(device_mesh=object())}.get(what, {})
-    if kw:
+    if what == "mesh":
         with pytest.raises(NotImplementedError):
-            tt.RenderWindow(dev, resolution=(32, 32), **kw)
+            tt.RenderWindow(dev, resolution=(32, 32), device_mesh=object())
+        return
+    if what == "pipeline_cache":
+        with pytest.raises(NotImplementedError):
+            tt.RenderDeviceBuilder().device("cpu").pipeline_cache_data(b"")
         return
     rig = tt.scenes.config1_triangle(dev, (32, 32))
-    win = tt.RenderWindow(dev, resolution=(32, 32), present_mode="immediate")
-    scene = win.get_render_scene()
-    rig.fill(scene, 0.0)
-    (tex,) = dev.create_textures(
-        [((1, 1), lambda b: b.__setitem__(slice(None), 1.0))])
-    v = np.zeros((3, 8), np.float32)
-    v[:, :2] = [[0, 0], [8, 0], [0, 8]]
-    scene.add_ui([(v, np.arange(3, dtype=np.uint32), tex)])
-    with pytest.raises(NotImplementedError):
+    for exact in (False, True):
+        win = tt.RenderWindow(dev, resolution=(32, 32),
+                              present_mode="immediate", exact=exact)
+        rf = win.rendering_function
+        rf.mesh_state = dataclasses.replace(
+            rf.mesh_state, depth=dataclasses.replace(
+                rf.mesh_state.depth, compare_op=tt.CompareOp.GREATER))
+        rig.fill(win.get_render_scene(), 0.0)
+        if not exact:
+            with pytest.raises(NotImplementedError):
+                win.render()
+            continue
         win.render()
+        # nothing is nearer than the cleared depth: GREATER draws nothing
+        assert not win.flush()[..., :3].any()

@@ -205,17 +205,21 @@ def test_visibility_equal_to_plain(cuda_device, case):
 
 
 @functools.lru_cache(maxsize=None)
-def deep_scene(device, tile, W=300, H=170, T=16_000, seed=71):
+def deep_scene(device, tile, W=300, H=170, T=16_000, seed=71,
+               zero_share=0.0):
     """Layers of small triangles crowded toward the frame's center, half at
     depths from a coarse set (exact ties), half at one depth each, drawn
     in a random order, and a few broad triangles behind them: the central
     tiles' segments run to several chunks of 256 rows and the early exit
-    stops most of them partway; the edge tiles are ragged at W x H."""
+    stops most of them partway; the edge tiles are ragged at W x H.  With
+    ``zero_share`` that share of the triangles lies at z = 0."""
     rng = np.random.default_rng(seed)
     center = np.clip(rng.normal(0.0, 0.3, (T, 1, 2)), -1.05, 1.05)
     xy = center + 0.06 * rng.uniform(-1, 1, (T, 3, 2))
     z = np.where(rng.random((T, 1)) < 0.5, rng.integers(1, 9, (T, 1)) / 9.0,
                  rng.uniform(0.0, 1.0, (T, 1)) + rng.uniform(0, 0.01, (T, 3)))
+    if zero_share:
+        z = np.where(rng.random((T, 1)) < zero_share, 0.0, z)
     n = T + 4
     clip = np.ones((n, 3, 4), np.float32)
     clip[:T, :, :2] = xy
@@ -341,6 +345,57 @@ def test_visibility_counts_equal_to_stream_plain(cuda_device, chunk):
     assert torch.equal(nvis, want_nvis)
     # the early exit skipped part of the table, and not all of it
     assert 0 < int(nvis.sum()) < int(b.num_entries)
+
+
+def ui_depth(device, W, H, tile, seed=3):
+    """An incoming depth buffer as the UI pass leaves it for the mesh pass:
+    z = 0 rectangles (a block of whole tiles among them), random D16
+    values and cleared areas."""
+    rng = np.random.default_rng(seed)
+    d = (rng.integers(0, 65536, (H, W)) / 65535.0).astype(np.float32)
+    for _ in range(10):
+        x0, y0 = rng.integers(0, W - 8), rng.integers(0, H - 8)
+        d[y0:y0 + rng.integers(8, 60), x0:x0 + rng.integers(8, 80)] = 1.0
+    for _ in range(16):
+        x0, y0 = rng.integers(0, W - 4), rng.integers(0, H - 4)
+        d[y0:y0 + rng.integers(4, 40), x0:x0 + rng.integers(4, 60)] = 0.0
+    # whole tiles of UI where the central layers pile up
+    cx, cy = (W // 2) // tile[0] * tile[0], (H // 2) // tile[1] * tile[1]
+    d[cy - tile[1]:cy + tile[1], cx - 2 * tile[0]:cx + 2 * tile[0]] = 0.0
+    return torch.from_numpy(d).to(device)
+
+
+@pytest.mark.parametrize("chunk", [7, 64])
+@pytest.mark.parametrize("tile", [(8, 8), (16, 16), (64, 16)])
+@pytest.mark.parametrize("variant", ["base", "peel2"])
+def test_visibility_on_a_ui_depth_buffer(cuda_device, variant, tile, chunk):
+    """K3 resolving against the depth a UI pass wrote (the UI frame's mesh
+    pass): z = 0 rectangles, tiles that are UI throughout (their deepest
+    incoming depth is 0, so the early exit stops at the first chunk whose
+    bound is above 0), random D16 values and cleared areas, with a tenth of
+    the triangles at z = 0 (LESS_OR_EQUAL ties with the UI): bit-equal to
+    the stream plain version."""
+    b, dims = deep_scene(cuda_device, tile, zero_share=0.1)
+    W, H = dims["fb_w"], dims["fb_h"]
+    depth0 = ui_depth(cuda_device, W, H, tile)
+    ds = DepthState(test_enable=True, write_enable=True,
+                    compare_op=CompareOp.LESS_OR_EQUAL)
+    kw = dict(depth_state=ds, chunk=chunk, peel2=variant == "peel2", **dims)
+    before = raster_cuda.variant_launches[variant]
+    got = raster_cuda.rasterize_visibility(b, depth0, (0, 0, W, H), **kw)
+    want = rasterize_visibility_stream_reference(b, depth0, (0, 0, W, H),
+                                                 **kw)
+    torch.cuda.synchronize()
+    assert raster_cuda.variant_launches[variant] == before + 1
+    layers = zip(got, want) if variant == "peel2" else [(got, want)]
+    for g, w in layers:
+        assert_layers_equal(g, w)
+    vis = got[0] if variant == "peel2" else got
+    ui = depth0 == 0
+    # z = 0 fragments took LESS_OR_EQUAL ties on the UI's pixels; the rest
+    # of the UI stayed in front
+    assert ((vis.owner >= 0) & ui).any() and ((vis.owner < 0) & ui).any()
+    assert torch.equal(vis.depth[ui], depth0[ui])
 
 
 def test_wrappers_reject_bad_input(cuda_device):

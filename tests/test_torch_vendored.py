@@ -273,3 +273,18 @@ def test_math3d_copy_matches():
                lambda m: m.compose(m.translation([1, 2, 3]),
                                    m.rotation_y(0.4), m.scale([2, 2, 2]))):
         np.testing.assert_array_equal(fn(tmath3d), fn(jmath3d))
+
+
+@pytest.mark.parametrize("module,cls", [("common_pipeline", "CommonPipeline"),
+                                        ("ui_pipeline", "UIPipeline")])
+def test_pipeline_objects_match(module, cls):
+    """The copies of the pipeline objects carry the originals' state and
+    push-constant size."""
+    import importlib
+
+    jmod = importlib.import_module(f"tyleri_tpu.pipeline.{module}")
+    tmod = importlib.import_module(f"tyleri_tpu_torch.pipeline.{module}")
+    ours, theirs = getattr(tmod, cls)(), getattr(jmod, cls)()
+    assert interop.from_jax(theirs.state) == ours.state
+    assert ours.push_constant_bytes == theirs.push_constant_bytes == \
+        tmod.PUSH_CONSTANT_BYTES

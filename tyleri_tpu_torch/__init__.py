@@ -25,11 +25,15 @@ drive a frame is exported here (``scenes``, ``RenderScene``,
 (``python3 -m tyleri_tpu_torch.tools.<name>``), each a hand-written CUDA
 kernel of ``csrc/probes.cu`` beside its plain version.
 
-Covered so far: the UI-free mesh frame through ``RenderWindow``, unlit
-(the fused setup kernel) and lit (Blinn-Phong, the clip-space setup path),
-with the two-layer blend (peel2) that the "auto" blend policy engages up to
-2^18 triangles.  The UI overlay, exact mode, anisotropic sampling and
-multi-device rendering raise ``NotImplementedError``.
+Covered: the frame through ``RenderWindow`` with its UI overlay (drawn
+first, at z = 0, by the exact rasterizer ``ops/raster_exact.py``), the mesh
+pass unlit (the fused setup kernel) and lit (Blinn-Phong, the clip-space
+setup path), with the two-layer blend (peel2) that the "auto" blend policy
+engages up to 2^18 triangles; exact mode (``blend_parity="exact"``), every
+depth state (K3 resolves test+write with LESS or LESS_OR_EQUAL, the
+reference's last-passing resolve the others) and anisotropic sampling.
+Only multi-device rendering is not ported: a window given a device mesh
+raises ``NotImplementedError``.
 """
 
 import importlib

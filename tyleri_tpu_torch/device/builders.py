@@ -6,11 +6,18 @@ one with the most memory.  With no CUDA device it raises
 ``DeviceSelectionError``; the CPU is used only when asked for explicitly
 with ``.device("cpu")`` (the plain PyTorch versions of the kernels run
 there).  There is no silent fallback from the card to the CPU.
+
+The reference's configuration surface is kept: the application and engine
+names, the sampler's anisotropy, the windows the device must present to
+(checked in ``build()``), and the size of the dispatch-queue pool.  The
+pipeline-cache seed is not: the port compiles no XLA programs, so there is
+no compilation cache to seed.
 """
 
 from __future__ import annotations
 
 import enum
+import os
 
 import torch
 
@@ -18,6 +25,8 @@ from tyleri_tpu_torch.device.debug import DebugMessenger, Severity
 from tyleri_tpu_torch.pipeline.state import DepthFormat
 from tyleri_tpu_torch.device.render_device import RenderDevice
 
+DEFAULT_APP_NAME = "Tyleri App"        # ref: builders.rs:29
+DEFAULT_ENGINE_NAME = "Tyleri Engine"  # ref: builders.rs:30
 DEFAULT_DEPTH_FORMAT = DepthFormat.D16_UNORM  # ref: builders.rs:31
 
 
@@ -44,11 +53,24 @@ class DeviceSelectionError(RuntimeError):
 
 class RenderDeviceBuilder:
     def __init__(self):
+        self._app_name = DEFAULT_APP_NAME
+        self._engine_name = DEFAULT_ENGINE_NAME
         self._validation = ValidationLevel.NONE
         self._debug_callback = None
         self._device_type = "cuda"
         self._device_id = None
         self._depth_format = DEFAULT_DEPTH_FORMAT
+        self._anisotropy = None
+        self._windows = []
+        self._queue_pool_size = 4
+
+    def app_name(self, name: str):
+        self._app_name = name
+        return self
+
+    def engine_name(self, name: str):
+        self._engine_name = name
+        return self
 
     def validation_level(self, level: ValidationLevel):
         self._validation = level
@@ -73,6 +95,45 @@ class RenderDeviceBuilder:
         self._depth_format = fmt
         return self
 
+    def max_sampler_anisotropy(self, value: float):
+        """Above 1, the deferred shade takes that many bilinear taps
+        (clamped to 2..16) along each pixel's footprint."""
+        self._anisotropy = value
+        return self
+
+    def pipeline_cache_data(self, data):
+        raise NotImplementedError(
+            "pipeline_cache_data seeds the JAX package's XLA compilation "
+            "cache; the port compiles no XLA programs, so it has no "
+            "compilation cache to seed")
+
+    def present_to(self, window_handle):
+        """Register a window the device must present to; ``build()``
+        checks each (the reference's surface-support check)."""
+        self._windows.append(window_handle)
+        return self
+
+    def queue_pool_size(self, n: int):
+        self._queue_pool_size = n
+        return self
+
+    @staticmethod
+    def _supports_presentation(device, handle) -> bool:
+        """The surface-support check (ref: builders.rs:185-221).  The port
+        presents by a device-to-host copy: a headless handle (both fields
+        None) always presents; a handle naming an OS window or display
+        needs well-formed non-negative ints and a windowing system on the
+        host (DISPLAY or WAYLAND_DISPLAY) to hand the pixels to."""
+        window = getattr(handle, "window", None)
+        display = getattr(handle, "display", None)
+        for field in (window, display):
+            if field is not None and (not isinstance(field, int) or field < 0):
+                return False
+        if window is None and display is None:
+            return True
+        return bool(os.environ.get("DISPLAY")
+                    or os.environ.get("WAYLAND_DISPLAY"))
+
     def _pick(self) -> torch.device:
         if self._device_type == "cpu":
             return torch.device("cpu")
@@ -92,6 +153,12 @@ class RenderDeviceBuilder:
 
     def build(self) -> RenderDevice:
         device = self._pick()
+        for handle in self._windows:
+            if not self._supports_presentation(device, handle):
+                raise DeviceSelectionError(
+                    f"device {device} cannot present to window {handle!r}")
+        if self._queue_pool_size < 1:
+            raise DeviceSelectionError("queue pool must hold at least 1 queue")
         min_sev = _SEVERITY_FOR_LEVEL[self._validation]
         messenger = DebugMessenger(
             min_severity=min_sev if min_sev is not None else Severity.ERROR,
@@ -103,5 +170,7 @@ class RenderDeviceBuilder:
         return RenderDevice(
             device,
             depth_format=self._depth_format,
+            sampler_anisotropy=self._anisotropy,
             debug_messenger=messenger,
+            queue_pool_size=self._queue_pool_size,
         )

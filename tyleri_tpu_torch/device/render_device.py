@@ -3,7 +3,9 @@
 
 Holds the ``torch.device`` every tensor of the frame path lives on, the
 memory allocator (numpy geometry and texture arenas), the depth format, the
-debug messenger and the dispatch queue.  The batch upload API
+sampler's anisotropy, the debug messenger and a pool of dispatch queues
+(the ``SegQueue<ParallelRecordingQueue>`` analog, ref:
+render_device.rs:19).  The batch upload API
 (create_vertices / create_indices / create_textures, ref:
 src/resource/mod.rs:31-136, with the writer-callback pattern) is copied from
 the JAX package's class: it only fills numpy staging arrays, which the
@@ -14,6 +16,7 @@ device.
 from __future__ import annotations
 
 import contextlib
+import queue
 
 import numpy as np
 import torch
@@ -51,6 +54,54 @@ class DispatchQueue:
         return event
 
 
+class DispatchQueuePool:
+    """The present queues, each on its own CUDA stream, popped for a frame
+    and pushed back after it (ref: render_window.rs:157-178).
+
+    Consecutive frames share the cached triangle tables, the arenas'
+    device copies and the caching allocator's blocks, so the queues run in
+    the order they were handed out: a popped queue's stream first waits
+    for everything submitted on the queue pushed before it."""
+
+    def __init__(self, device: torch.device, count: int = 4):
+        self._q: "queue.SimpleQueue[DispatchQueue]" = queue.SimpleQueue()
+        for _ in range(count):
+            self._q.put(DispatchQueue(device))
+        self._last = None   # event after the last pushed queue's work
+
+    def pop(self) -> DispatchQueue:
+        q = self._q.get()
+        if q.stream is not None and self._last is not None:
+            q.stream.wait_event(self._last)
+        return q
+
+    def push(self, q: DispatchQueue) -> None:
+        if q.stream is not None:
+            self._last = q.fence()
+        self._q.put(q)
+
+    def event(self, enable_timing: bool = False):
+        """A CUDA event after everything submitted through the pool so far
+        (None on the CPU), e.g. to time a run of frames."""
+        q = self.pop()
+        try:
+            if q.stream is None:
+                return None
+            ev = torch.cuda.Event(enable_timing=enable_timing)
+            ev.record(q.stream)
+            return ev
+        finally:
+            self.push(q)
+
+
+def aniso_taps(anisotropy) -> int:
+    """The shade's taps for a sampler anisotropy: its rounding, clamped to
+    2..16 (0 where it is unset or at most 1: plain bilinear)."""
+    if not anisotropy or float(anisotropy) <= 1.0:
+        return 0
+    return max(2, min(int(round(float(anisotropy))), 16))
+
+
 class _MemoryInfo:
     """The ``memory_stats()`` face ResourcesInfo reads a budget from."""
 
@@ -70,13 +121,28 @@ class RenderDevice:
         device: torch.device,
         *,
         depth_format: DepthFormat = DepthFormat.D16_UNORM,
+        sampler_anisotropy: float | None = None,
         debug_messenger: DebugMessenger | None = None,
+        queue_pool_size: int = 4,
     ):
         self.device = torch.device(device)
         self.depth_format = depth_format
+        # the shared sampler (ref: builders.rs:300-320): anisotropy above 1
+        # engages the footprint-filtered deferred shade
+        # (ops/sampling.py::sample_anisotropic); exact mode stays bilinear
+        self.sampler_anisotropy = sampler_anisotropy
         self.debug_messenger = debug_messenger or DebugMessenger()
+        if sampler_anisotropy:
+            self.debug_messenger.emit(
+                debug.Severity.INFO,
+                "sampler-anisotropy",
+                f"sampler_anisotropy={sampler_anisotropy}: deferred shade "
+                f"samples {aniso_taps(sampler_anisotropy)} footprint taps "
+                "per pixel (visibility paths; exact mode stays bilinear)",
+                debug.MessageType.PERFORMANCE,
+            )
         self.memory_allocator = MemoryAllocator(_MemoryInfo(self.device))
-        self.queue = DispatchQueue(self.device)
+        self.present_queues = DispatchQueuePool(self.device, queue_pool_size)
 
     # ---- batch upload API (ref: src/resource/mod.rs) ----
 

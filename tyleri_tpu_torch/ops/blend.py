@@ -1,4 +1,4 @@
-"""Vulkan blend equations over pixels (counterpart of
+"""Vulkan blend equations and depth compares over pixels (counterpart of
 ``tyleri_tpu/ops/blend.py``).  The mesh pipeline's state is
 SrcColor/OneMinusDstColor ADD with alpha Zero/Zero
 (ref: src/pipeline/common_pipeline.rs:117-131)."""
@@ -7,7 +7,30 @@ from __future__ import annotations
 
 import torch
 
-from tyleri_tpu_torch.pipeline.state import BlendFactor, BlendOp, BlendState
+from tyleri_tpu_torch.pipeline.state import (
+    BlendFactor,
+    BlendOp,
+    BlendState,
+    CompareOp,
+    lookup,
+)
+
+_COMPARE = {
+    CompareOp.NEVER: None, CompareOp.ALWAYS: None,
+    CompareOp.LESS: torch.lt, CompareOp.EQUAL: torch.eq,
+    CompareOp.LESS_OR_EQUAL: torch.le, CompareOp.GREATER: torch.gt,
+    CompareOp.NOT_EQUAL: torch.ne, CompareOp.GREATER_OR_EQUAL: torch.ge,
+}
+
+
+def apply_compare(op: CompareOp, new, old):
+    """Depth-compare ``new`` against ``old``: a boolean pass mask."""
+    fn = lookup(_COMPARE, op)
+    if fn is None:
+        shape = torch.broadcast_shapes(new.shape, old.shape)
+        fill = torch.ones if op == CompareOp.ALWAYS else torch.zeros
+        return fill(shape, dtype=torch.bool, device=new.device)
+    return fn(new, old)
 
 
 def _factor(fac: BlendFactor, src, dst, channels: slice):

@@ -1,5 +1,6 @@
 """Texture sampling from the flat texel-quad arena (counterpart of
-``tyleri_tpu/ops/sampling.py``, bilinear path).
+``tyleri_tpu/ops/sampling.py``): bilinear, and anisotropic with
+derivatives from 2x2 fragment quads.
 
 Every texture is a row-major slice of one texel arena plus per-slot
 (offset, width, height); the sampler is linear with mirrored-repeat
@@ -76,3 +77,49 @@ def sample_bilinear(texel_quads, tex_offset, tex_width, tex_height, tex_id,
     top = tap(r0, iu0m) * (1.0 - fu) + tap(r0, iu1m) * fu
     bot = tap(r1, iu0m) * (1.0 - fu) + tap(r1, iu1m) * fu
     return top * (1.0 - fv) + bot * fv
+
+
+def quad_derivatives(f: torch.Tensor):
+    """GPU-style 2x2 fragment-quad derivatives (dFdx, dFdy) of f [H, W]:
+    the four pixels of each screen-aligned quad share its forward
+    differences; an odd last row or column replicates its edge."""
+    H, W = f.shape[-2:]
+    fp = f
+    if W % 2:
+        fp = torch.cat([fp, fp[:, -1:]], dim=1)
+    if H % 2:
+        fp = torch.cat([fp, fp[-1:]], dim=0)
+    Hp, Wp = fp.shape
+    q = fp.reshape(Hp // 2, 2, Wp // 2, 2)
+    dx = (q[:, :, :, 1:2] - q[:, :, :, 0:1]).expand(q.shape)
+    dy = (q[:, 1:2, :, :] - q[:, 0:1, :, :]).expand(q.shape)
+    return (dx.reshape(Hp, Wp)[:H, :W], dy.reshape(Hp, Wp)[:H, :W])
+
+
+def sample_anisotropic(texel_quads, tex_offset, tex_width, tex_height,
+                       tex_id, u, v, dudx, dvdx, dudy, dvdy, *, taps: int):
+    """``taps`` bilinear taps spread along the major axis of each pixel's
+    texel-space footprint, averaged (the sampler's max_sampler_anisotropy,
+    ref: builders.rs:300-320).  With no mip chain the spread is clamped to
+    ``taps`` texels; a sub-texel footprint collapses onto the bilinear
+    result."""
+    tid = torch.clamp(tex_id.long(), 0, tex_offset.shape[0] - 1)
+    w = torch.clamp(tex_width.long()[tid], min=1).to(torch.float32)
+    h = torch.clamp(tex_height.long()[tid], min=1).to(torch.float32)
+    lx = (dudx * w) ** 2 + (dvdx * h) ** 2
+    ly = (dudy * w) ** 2 + (dvdy * h) ** 2
+    use_x = lx >= ly
+    mu = torch.where(use_x, dudx, dudy)
+    mv = torch.where(use_x, dvdx, dvdy)
+    lmaj = torch.sqrt(torch.maximum(lx, ly))
+    scale = torch.where(lmaj > taps, taps / torch.clamp(lmaj, min=1e-30),
+                        torch.ones_like(lmaj))
+    mu = mu * scale
+    mv = mv * scale
+    acc = None
+    for i in range(taps):
+        t = (i + 0.5) / taps - 0.5
+        s = sample_bilinear(texel_quads, tex_offset, tex_width, tex_height,
+                            tex_id, u + mu * t, v + mv * t)
+        acc = s if acc is None else acc + s
+    return acc / taps

@@ -7,7 +7,9 @@ blending; the visibility pass already resolved the winner's u/w, v/w, 1/w
 and texture slot per pixel, so shading is one texel-quad gather + blend.
 Lit frames add Blinn-Phong (scene/light.py): the world normal from the
 winner's normal/w planes, the world position by unprojecting the pixel at
-its depth.
+its depth.  A sampler anisotropy above 1 (``aniso_taps``) takes that many
+bilinear taps along each pixel's footprint, from UV derivatives by 2x2
+quad differencing of the attribute maps.
 
 The light, the inverse view-projection, the eye and the viewport are host
 values: they enter as f32 scalars, so no host-to-device copy waits on the
@@ -22,7 +24,11 @@ import torch
 
 from tyleri_tpu_torch.pipeline.state import BlendState
 from tyleri_tpu_torch.ops.blend import apply_blend
-from tyleri_tpu_torch.ops.sampling import sample_bilinear
+from tyleri_tpu_torch.ops.sampling import (
+    quad_derivatives,
+    sample_anisotropic,
+    sample_bilinear,
+)
 from tyleri_tpu_torch.ops.setup import viewport_floats
 
 
@@ -84,9 +90,13 @@ def unproject_window(owner_valid, depth, viewport, inv_vp, fb_w, fb_h):
 
 
 def shade_visibility(vis, texels, tex_offset, tex_width, tex_height,
-                     blend_state: BlendState, dst_color, lit=None):
+                     blend_state: BlendState, dst_color, lit=None,
+                     aniso_taps: int = 0):
     """vis: VisibilityBuffer; texels f32 [cap, 16] quad arena;
     dst_color f32 [H, W, 4] -> blended color [H, W, 4].
+
+    ``aniso_taps`` > 1 samples anisotropically: the quotient rule turns the
+    quad derivatives of the u/w, v/w and 1/w maps into those of u and v.
 
     ``lit`` = (nw_planes f32 [E + B, 12], light [12], inv_vp [4, 4], eye
     [3], viewport [6]): nw_planes is concat(entry_extra, broad_extra), the
@@ -96,8 +106,20 @@ def shade_visibility(vis, texels, tex_offset, tex_width, tex_height,
     denom = torch.where(vis.iw == 0, torch.ones_like(vis.iw), vis.iw)
     u = vis.uw / denom
     v = vis.vw / denom
-    src = sample_bilinear(texels, tex_offset, tex_width, tex_height,
-                          vis.tex, u, v)
+    if aniso_taps and aniso_taps > 1:
+        duw_dx, duw_dy = quad_derivatives(vis.uw)
+        dvw_dx, dvw_dy = quad_derivatives(vis.vw)
+        diw_dx, diw_dy = quad_derivatives(vis.iw)
+        dudx = (duw_dx - u * diw_dx) / denom
+        dudy = (duw_dy - u * diw_dy) / denom
+        dvdx = (dvw_dx - v * diw_dx) / denom
+        dvdy = (dvw_dy - v * diw_dy) / denom
+        src = sample_anisotropic(
+            texels, tex_offset, tex_width, tex_height, vis.tex, u, v,
+            dudx, dvdx, dudy, dvdy, taps=int(aniso_taps))
+    else:
+        src = sample_bilinear(texels, tex_offset, tex_width, tex_height,
+                              vis.tex, u, v)
     if lit is not None:
         nw_planes, light, inv_vp, eye, viewport = lit
         H, W = vis.owner.shape

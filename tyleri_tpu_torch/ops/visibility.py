@@ -24,6 +24,14 @@ variants depend on that order and have no other form:
 * the visit counter counts, per tile, the narrow entries the kernel
   resolves before its exit.
 
+``rasterize_visibility_last_passing`` resolves the depth states K3 does
+not take (``k3_supports``): ALWAYS and NEVER, the test off, and the write
+off.  Under those the reference's XLA resolve lets the last drawn passing
+fragment own the pixel (tyleri_tpu/ops/visibility.py:194-207), testing
+each fragment against the incoming depth, which the pass never changes
+while it tests; the depth buffer takes the owner's depth only with the
+write on.
+
 ``rasterize_visibility_reference`` resolves the same table with no exit:
 every entry of every tile's segment, then the broad list, evaluated in
 blocks against the pixels of each tile and reduced per pixel with packed
@@ -73,17 +81,17 @@ _D16 = {DepthFormat.D16_UNORM: True, DepthFormat.D32_SFLOAT: False}
 
 def k3_supports(depth_state: DepthState) -> bool:
     """Depth test + write with LESS or LESS_OR_EQUAL: the states K3 and its
-    plain versions resolve (others need exact mode)."""
+    plain versions resolve.  The rendering passes take
+    ``rasterize_visibility_last_passing`` for every other state."""
     return (lookup(_K3_COMPARE, depth_state.compare_op)
             and depth_state.test_enable and depth_state.write_enable)
 
 
 def check_depth_state(depth_state: DepthState) -> None:
     if not k3_supports(depth_state):
-        raise NotImplementedError(
-            "the visibility resolve supports depth test+write with "
-            "LESS/LESS_OR_EQUAL; other depth states need exact mode (not "
-            "yet ported)")
+        raise ValueError(
+            "K3 resolves depth test+write with LESS/LESS_OR_EQUAL; other "
+            "states take rasterize_visibility_last_passing")
 
 
 def depth_flags(depth_state: DepthState) -> tuple[bool, bool]:
@@ -162,70 +170,61 @@ class _Best:
         self.owner = torch.where(take, own, self.owner)
 
 
-def rasterize_visibility_reference(
-        binned: BinnedEntries, init_depth, scissor, *, fb_w: int, fb_h: int,
-        tile_w: int, tile_h: int, grid_w: int, grid_h: int,
-        depth_state: DepthState) -> VisibilityBuffer:
-    """K3's resolve with no early exit (the depth test's exact answer).
-    ``init_depth`` f32 [fb_h, fb_w]; scissor 4 host ints."""
-    le, d16 = depth_flags(depth_state)
+def _pair_blocks(binned: BinnedEntries, scissor, *, fb_w: int, fb_h: int,
+                 tile_w: int, tile_h: int, grid_w: int, grid_h: int):
+    """A binned table's (entry, pixel) pairs in blocks, in K3's order: each
+    narrow entry against its tile's pixels, then each broad entry against
+    every pixel of its tile box.  Yields (ch [N, 24], eid [N], xf, yf, live,
+    pix), the last four [N, M]: pixel centers, in the framebuffer and the
+    scissor, and the flat pixel index (clamped where not live)."""
     dev = binned.entry_channels.device
     scx, scy, scw, sch = S.scissor_ints(scissor)
-    npix = fb_w * fb_h
-    depth0 = init_depth.reshape(npix).to(torch.float32)
-    best = _Best(npix, dev, le)
+
+    def block(ch, eids, px, py):
+        live = ((px < fb_w) & (py < fb_h) & (px >= scx) & (px < scx + scw)
+                & (py >= scy) & (py < scy + sch))
+        pix = torch.clamp(py, 0, fb_h - 1) * fb_w + torch.clamp(px, 0,
+                                                                fb_w - 1)
+        return (ch, eids, px.to(torch.float32) + 0.5,
+                py.to(torch.float32) + 0.5, live, pix)
 
     P = tile_w * tile_h
     lx = torch.arange(P, device=dev) % tile_w
     ly = torch.arange(P, device=dev) // tile_w
-
-    def candidates(ch, eids, px, py):
-        """ch [N, 24] against pixels px/py [N, M] -> folded into best."""
-        xf = px.to(torch.float32) + 0.5
-        yf = py.to(torch.float32) + 0.5
-        live = ((px < fb_w) & (py < fb_h) & (px >= scx) & (px < scx + scw)
-                & (py >= scy) & (py < scy + sch))
-        frag, zq = _fragments(ch[:, None, :], xf, yf, live, d16)
-        pix = torch.clamp(py, 0, fb_h - 1) * fb_w + torch.clamp(px, 0,
-                                                                fb_w - 1)
-        z0 = depth0[pix]
-        passing = frag & ((zq <= z0) if le else (zq < z0))
-        order = ch[:, S.CH_ORDER][:, None].expand_as(zq)
-        eid = eids[:, None].expand_as(zq)
-        best.update(pix[passing], best.pack(zq[passing], order[passing]),
-                    eid[passing])
-
-    # narrow entries: each tile's segment against that tile's pixels
     hi = int(binned.tile_start[grid_w * grid_h])
-    block = max(1, _PAIRS_PER_BLOCK // P)
-    for s in range(0, hi, block):
-        e = min(s + block, hi)
+    step = max(1, _PAIRS_PER_BLOCK // P)
+    for s in range(0, hi, step):
+        e = min(s + step, hi)
         tile = binned.entry_tile[s:e].long()
         px = (tile % grid_w * tile_w)[:, None] + lx[None, :]
         py = (tile // grid_w * tile_h)[:, None] + ly[None, :]
-        candidates(binned.entry_channels[s:e],
-                   torch.arange(s, e, device=dev), px, py)
+        yield block(binned.entry_channels[s:e],
+                    torch.arange(s, e, device=dev), px, py)
 
-    # broad entries: every pixel whose tile is in the entry's tile bbox
     E_cap = binned.entry_channels.shape[0]
     nb = min(int(binned.num_broad), binned.broad_channels.shape[0])
-    pid = torch.arange(npix, device=dev)
+    pid = torch.arange(fb_w * fb_h, device=dev)
     all_px, all_py = (pid % fb_w)[None, :], (pid // fb_w)[None, :]
     for j in range(nb):
         tx0, ty0, tx1, ty1 = binned.broad_tiles[j].tolist()
         in_box = ((all_px // tile_w >= tx0) & (all_px // tile_w <= tx1)
                   & (all_py // tile_h >= ty0) & (all_py // tile_h <= ty1))
         px = torch.where(in_box, all_px, torch.full_like(all_px, fb_w))
-        candidates(binned.broad_channels[j:j + 1],
-                   torch.full((1,), E_cap + j, device=dev), px, all_py)
+        yield block(binned.broad_channels[j:j + 1],
+                    torch.full((1,), E_cap + j, device=dev), px, all_py)
 
-    # winner attributes: the winner's planes at the pixel centers
-    owner = best.owner
+
+def _winner_maps(binned: BinnedEntries, owner, depth0, fb_w: int, fb_h: int,
+                 d16: bool, write: bool) -> VisibilityBuffer:
+    """The maps of the winners ``owner`` (i64 [fb_h * fb_w], -1 none): each
+    winner's planes at the pixel centers; the depth its quantized z with
+    ``write``, else the incoming ``depth0``."""
     won = owner >= 0
     all_ch = torch.cat([binned.entry_channels, binned.broad_channels])
     ch = all_ch[torch.clamp(owner, min=0)]
-    xf = all_px[0].to(torch.float32) + 0.5
-    yf = all_py[0].to(torch.float32) + 0.5
+    pid = torch.arange(fb_w * fb_h, device=owner.device)
+    xf = (pid % fb_w).to(torch.float32) + 0.5
+    yf = (pid // fb_w).to(torch.float32) + 0.5
     _, _, zq = _quantized_z(ch, xf, yf, d16)
     one, zero = torch.ones_like(xf), torch.zeros_like(xf)
 
@@ -238,13 +237,100 @@ def rasterize_visibility_reference(
     tex = ch[:, S.CH_META].to(torch.int32) & S.META_TEX_MASK
     return VisibilityBuffer(
         owner=hw(owner.to(torch.int32)),
-        depth=hw(torch.where(won, zq, depth0)),
+        depth=hw(torch.where(won, zq, depth0) if write else depth0),
         order=hw(torch.where(won, ch[:, S.CH_ORDER], -one)),
         uw=hw(plane_or(S.CH_UW, zero)),
         vw=hw(plane_or(S.CH_VW, zero)),
         iw=hw(plane_or(S.CH_INVW, one)),
         tex=hw(torch.where(won, tex, torch.zeros_like(tex))),
     )
+
+
+def rasterize_visibility_reference(
+        binned: BinnedEntries, init_depth, scissor, *, fb_w: int, fb_h: int,
+        tile_w: int, tile_h: int, grid_w: int, grid_h: int,
+        depth_state: DepthState) -> VisibilityBuffer:
+    """K3's resolve with no early exit (the depth test's exact answer).
+    ``init_depth`` f32 [fb_h, fb_w]; scissor 4 host ints."""
+    le, d16 = depth_flags(depth_state)
+    depth0 = init_depth.reshape(fb_w * fb_h).to(torch.float32)
+    best = _Best(fb_w * fb_h, depth0.device, le)
+    for ch, eids, xf, yf, live, pix in _pair_blocks(
+            binned, scissor, fb_w=fb_w, fb_h=fb_h, tile_w=tile_w,
+            tile_h=tile_h, grid_w=grid_w, grid_h=grid_h):
+        frag, zq = _fragments(ch[:, None, :], xf, yf, live, d16)
+        z0 = depth0[pix]
+        passing = frag & ((zq <= z0) if le else (zq < z0))
+        order = ch[:, S.CH_ORDER][:, None].expand_as(zq)
+        eid = eids[:, None].expand_as(zq)
+        best.update(pix[passing], best.pack(zq[passing], order[passing]),
+                    eid[passing])
+    return _winner_maps(binned, best.owner, depth0, fb_w, fb_h, d16,
+                        write=True)
+
+
+# the test each fragment of the last-passing resolve meets against the
+# incoming depth; None: the reference's visibility path refuses the op
+_LAST_PASSING_TEST = {
+    CompareOp.ALWAYS: "always", CompareOp.NEVER: "never",
+    CompareOp.LESS: "less", CompareOp.LESS_OR_EQUAL: "le",
+    CompareOp.EQUAL: None, CompareOp.GREATER: None,
+    CompareOp.NOT_EQUAL: None, CompareOp.GREATER_OR_EQUAL: None,
+}
+
+
+def rasterize_visibility_last_passing(
+        binned: BinnedEntries, init_depth, scissor, *, fb_w: int, fb_h: int,
+        tile_w: int, tile_h: int, grid_w: int, grid_h: int,
+        depth_state: DepthState) -> VisibilityBuffer:
+    """The reference's resolve for the depth states K3 does not take
+    (tyleri_tpu/ops/visibility.py:137-207): every covered, in-range,
+    scissored fragment that passes the test against the incoming depth
+    (ALWAYS and the test off: all; NEVER: none; write off under LESS or
+    LESS_OR_EQUAL: the comparison) competes, and the largest draw order
+    owns the pixel.  Among passing entries of one order the first resolved
+    (narrow entries in table order, then the broad list) owns it.  With
+    the write on the depth buffer takes the owner's depth, else it keeps
+    the incoming one.  Depth is quantized as K3 quantizes it (XLA compiles
+    the reference's division by 65535 into the same multiplication).
+
+    (entry, pixel) pairs are evaluated in blocks, as in
+    ``rasterize_visibility_reference``, and reduced per pixel with one
+    packed (order, entry) key.  Other compare ops raise, as on the
+    reference's visibility path; they render in exact mode."""
+    test = (lookup(_LAST_PASSING_TEST, depth_state.compare_op)
+            if depth_state.test_enable else "always")
+    if test is None:
+        raise NotImplementedError(
+            f"the visibility path resolves LESS, LESS_OR_EQUAL, ALWAYS and "
+            f"NEVER, not {depth_state.compare_op.name}; use exact mode for "
+            f"other compare ops")
+    if k3_supports(depth_state):
+        raise ValueError("K3 resolves depth test+write with LESS/"
+                         "LESS_OR_EQUAL (rasterize_visibility)")
+    d16 = lookup(_D16, depth_state.format)
+    depth0 = init_depth.reshape(fb_w * fb_h).to(torch.float32)
+    # key = order << 32 | (2^32 - 1 - entry): the largest order, then the
+    # first entry; -1 where nothing passed
+    low = (1 << 32) - 1
+    best = torch.full((fb_w * fb_h,), -1, dtype=torch.int64,
+                      device=depth0.device)
+    blocks = () if test == "never" else _pair_blocks(
+        binned, scissor, fb_w=fb_w, fb_h=fb_h, tile_w=tile_w, tile_h=tile_h,
+        grid_w=grid_w, grid_h=grid_h)
+    for ch, eids, xf, yf, live, pix in blocks:
+        frag, zq = _fragments(ch[:, None, :], xf, yf, live, d16)
+        if test == "less":
+            frag = frag & (zq < depth0[pix])
+        elif test == "le":
+            frag = frag & (zq <= depth0[pix])
+        order = ch[:, S.CH_ORDER].to(torch.int64)[:, None].expand_as(zq)
+        eid = eids[:, None].expand_as(zq)
+        key = (order[frag] << 32) | (low - eid[frag])
+        best.scatter_reduce_(0, pix[frag], key, reduce="amax")
+    owner = torch.where(best >= 0, low - (best & low), -1)
+    return _winner_maps(binned, owner, depth0, fb_w, fb_h, d16,
+                        write=depth_state.write_enable)
 
 
 class _Layer:

@@ -2,10 +2,13 @@
 ``tyleri_tpu/rendering/forward.py``; ref:
 src/rendering_function/forward_rendering/mod.rs).
 
-Per frame: clear (color [0,0,0,0], depth 1.0 — mod.rs:218-229), then one
-mesh pass per camera (rendering/passes.py): unlit frames take the fused
-setup kernel (``mesh_pass_fused``), lit frames (a camera with a
-DirectionalLight) the clip-space path with world normals (``mesh_pass``).
+Per frame: clear (color [0,0,0,0], depth 1.0 — mod.rs:218-229), the UI
+overlay when the scene has one (``ui_pass``, drawn first at z = 0 as the
+reference records it), then one mesh pass per camera
+(rendering/passes.py): unlit frames take the fused setup kernel
+(``mesh_pass_fused``), lit frames (a camera with a DirectionalLight) the
+clip-space path with world normals (``mesh_pass``), and exact mode the
+clip-space path drawn triangle by triangle.
 Capacities are plan values that grow on reported overflow and shrink to
 fitted demand after clean frames (``note_overflow``).  Eager PyTorch has
 no compile step, so a plan change costs nothing beyond the next frame's
@@ -13,10 +16,12 @@ allocations.
 
 The blend-parity policy (``_apply_blend_parity``) turns on the two-layer
 blend (peel2) for blending scenes of at most BLEND_PARITY_PEEL2_MAX_TRIS
-triangles, as the JAX package does wherever its kernel runs.
+triangles, as the JAX package does wherever its kernel runs;
+``blend_parity="exact"`` (or ``exact=True``) is exact mode.  The device's
+sampler anisotropy sets the shade's taps.
 
-Not ported yet (each raises NotImplementedError): the UI overlay, exact
-mode, anisotropic sampling and multi-device rendering.
+Not ported yet: multi-device rendering (the window raises
+NotImplementedError for a device mesh).
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ import numpy as np
 import torch
 
 from tyleri_tpu_torch.device import debug
+from tyleri_tpu_torch.device.render_device import aniso_taps
 from tyleri_tpu_torch.pipeline.common_pipeline import CommonPipeline
+from tyleri_tpu_torch.pipeline.ui_pipeline import UIPipeline
 from tyleri_tpu_torch.ops.binning import spill_rows
 from tyleri_tpu_torch.ops.setup import (
     build_triangle_table,
@@ -39,6 +46,7 @@ from tyleri_tpu_torch.rendering.passes import (
     RasterPlan,
     mesh_pass,
     mesh_pass_fused,
+    ui_pass,
 )
 from tyleri_tpu_torch.resource.arenas import geometry_tensors
 from tyleri_tpu_torch.resource.textures import texture_tensors
@@ -79,6 +87,8 @@ class FramePlan:
     cam_cap: int = 1
     draw_cap: int = 16
     tri_cap: int = 1 << 12
+    ui_tri_cap: int = 256
+    has_ui: bool = False  # the frame draws the UI overlay
     lit: bool = False   # Blinn-Phong: some camera has a DirectionalLight
 
 
@@ -106,8 +116,9 @@ def world_normals(corner_nrm, tri_draw, models):
 def frame_body(plan: FramePlan, mesh_state, texels, tex_offset, tex_width,
                tex_height, clear_color, cam_valid, viewports, scissors, mvps,
                corners, tri_draw, tri_valid0, tri_tex, corner_nrm=None,
-               models=None, lights=None, inv_vps=None, eyes=None) -> Frame:
-    """One frame: clear -> one mesh pass per live camera.
+               models=None, lights=None, inv_vps=None, eyes=None, ui=None,
+               ui_state=None) -> Frame:
+    """One frame: clear -> the UI overlay -> one mesh pass per live camera.
 
     cam_valid bool [C], viewports f32 [C, 6] and scissors i32 [C, 4] are
     host arrays; mvps f32 [C, D, 16] and the cached triangle tables
@@ -115,14 +126,26 @@ def frame_body(plan: FramePlan, mesh_state, texels, tex_offset, tex_width,
     [C, T]) live on the device.  Lit frames add the corner normals
     [C, T, 3, 3] and the models f32 [C, D, 4, 4] on the device, and the
     lights f32 [C, 12], inverse view-projections [C, 4, 4] and eyes [C, 3]
-    on the host."""
+    on the host.  With ``plan.has_ui``, ``ui`` = (clip [U, 3, 4], uv
+    [U, 3, 2], colors [U, 3, 4], tex i32 [U], valid bool [U]) on the
+    device and the window's viewport and scissor on the host, drawn with
+    ``ui_state``."""
     dev = corners.device
     H, W = plan.raster.fb_h, plan.raster.fb_w
     color = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
     for i, c in enumerate(clear_color):   # fills: no host->device copy
         color[..., i] = c
     depth = torch.full((H, W), CLEAR_DEPTH, dtype=torch.float32, device=dev)
+    # global draw order of each pixel's winner: -1 clear, 0 UI, >= 1 meshes
     order = torch.full((H, W), -1.0, dtype=torch.float32, device=dev)
+    if plan.has_ui:
+        # the UI records first (ref: mod.rs:291-296): its depth write at
+        # z = 0 occludes the mesh fragments behind it
+        ui_clip, ui_uv, ui_color, ui_tex, ui_valid, wvp, wsc = ui
+        color, depth = ui_pass(ui_state, color, depth, ui_clip, ui_uv,
+                               ui_color, ui_tex, ui_valid, wvp, wsc, texels,
+                               tex_offset, tex_width, tex_height)
+        order = torch.where(depth < CLEAR_DEPTH, 0.0, order)
     # camera-pass order stride: pass orders are table rows in
     # [0, tri_cap + clip_cap)
     span = float(plan.tri_cap + plan.raster.clip_cap + 1)
@@ -132,23 +155,29 @@ def frame_body(plan: FramePlan, mesh_state, texels, tex_offset, tex_width,
     for c in range(plan.cam_cap):
         if not cam_valid[c]:
             continue
-        if plan.lit:
+        if plan.lit or plan.raster.exact:
+            # exact mode draws from clip space, unlit (passes.py:241,271)
             clip, uv = transform_corner_table(corners[c], tri_draw[c],
                                               mvps[c])
+            lit = {}
+            if plan.lit:
+                lit = dict(
+                    normals=world_normals(corner_nrm[c], tri_draw[c],
+                                          models[c]),
+                    lit_params=(lights[c], inv_vps[c], eyes[c]))
             color, depth, st, pass_order = mesh_pass(
                 plan.raster, mesh_state, color, depth, clip, uv, tri_tex[c],
                 tri_valid0[c], viewports[c], scissors[c], texels, tex_offset,
-                tex_width, tex_height,
-                normals=world_normals(corner_nrm[c], tri_draw[c], models[c]),
-                lit_params=(lights[c], inv_vps[c], eyes[c]))
+                tex_width, tex_height, **lit)
         else:
             color, depth, st, pass_order = mesh_pass_fused(
                 plan.raster, mesh_state, color, depth, corners[c],
                 tri_draw[c], tri_tex[c], tri_valid0[c], mvps[c], True,
                 viewports[c], scissors[c], texels, tex_offset, tex_width,
                 tex_height)
-        order = torch.where(pass_order >= 0.0, c * span + pass_order + 1.0,
-                            order)
+        if pass_order is not None:   # exact mode keeps no order map
+            order = torch.where(pass_order >= 0.0,
+                                c * span + pass_order + 1.0, order)
         bin_of = bin_of + st.bin_overflow
         tile_of = tile_of + st.tile_overflow
         clip_of = clip_of + st.clip_overflow
@@ -172,21 +201,25 @@ class ForwardRenderingFunction:
                  blend_parity: str = "auto"):
         if blend_parity not in ("auto", "fast", "peel2", "exact"):
             raise ValueError(f"unsupported blend_parity {blend_parity!r}")
-        if exact or blend_parity == "exact":
-            raise NotImplementedError(
-                "exact mode (ordered per-fragment rasterization) is not "
-                "ported yet")
+        exact = exact or blend_parity == "exact"
         self.render_device = render_device
         self.blend_parity = blend_parity
         self._blend_parity_warned = False
+        self._envelope_warned = False
         w, h = swapchain.resolution
-        state = CommonPipeline().state
-        self.mesh_state = dataclasses.replace(
-            state, depth=dataclasses.replace(
-                state.depth, format=render_device.depth_format))
-        raster = RasterPlan.for_scene(w, h, 1 << 12)
+        # both pipelines take the device's depth format
+        self.mesh_state, self.ui_state = (
+            dataclasses.replace(st, depth=dataclasses.replace(
+                st.depth, format=render_device.depth_format))
+            for st in (CommonPipeline().state, UIPipeline().state))
+        raster = RasterPlan.for_scene(w, h, 1 << 12, exact=exact)
         if blend_parity == "peel2":
             raster = dataclasses.replace(raster, peel2=True)
+        # the device's shared sampler (builders.rs:300-320): anisotropy
+        # above 1 engages the footprint-filtered shade, not in exact mode
+        taps = aniso_taps(render_device.sampler_anisotropy)
+        if taps and not exact:
+            raster = dataclasses.replace(raster, aniso_taps=taps)
         self.plan = FramePlan(raster=raster)
         # capacity feedback (the JAX package's discipline): spill headroom
         # doubles on bin overflow; the near clip turns off after a
@@ -226,8 +259,10 @@ class ForwardRenderingFunction:
         (exact wherever a pixel has at most two).  "auto" engages peel2 up
         to BLEND_PARITY_PEEL2_MAX_TRIS triangles, where K3 supports the
         depth state; above it, or pinned "fast", the single layer ships
-        and the deviation is reported once.  "peel2" pins it on."""
-        if self.blend_parity == "peel2" or not self.mesh_state.blend.enable:
+        and the deviation is reported once.  "peel2" pins it on; exact mode
+        blends every fragment in order and needs neither."""
+        if (self.blend_parity not in ("auto", "fast") or raster.exact
+                or not self.mesh_state.blend.enable):
             return raster
         effective = (self.blend_parity == "auto"
                      and n_tris <= BLEND_PARITY_PEEL2_MAX_TRIS
@@ -241,14 +276,31 @@ class ForwardRenderingFunction:
                 "the final visible fragment is blended; overlapping "
                 "fragments that each pass the depth test would accumulate "
                 "differently (peel2 adds two-layer sequential blending; "
-                "exact mode, not ported yet, gives full per-fragment "
-                "parity)",
+                "exact mode gives full per-fragment parity)",
                 debug.MessageType.PERFORMANCE,
             )
         return dataclasses.replace(raster, peel2=effective)
 
+    def _check_k3_envelope(self) -> None:
+        """One PERFORMANCE message when the mesh state is outside K3's
+        envelope: such frames resolve visibility with the last-passing
+        PyTorch resolve (ops/visibility.py), not the kernel."""
+        if (self._envelope_warned or self.plan.raster.exact
+                or k3_supports(self.mesh_state.depth)):
+            return
+        self._envelope_warned = True
+        self.render_device.debug_messenger.emit(
+            debug.Severity.WARNING,
+            "k3-envelope",
+            "mesh pipeline state is outside the K3 visibility kernel's "
+            "envelope (needs depth test+write with LESS/LESS_OR_EQUAL); "
+            "frames resolve visibility with the slower last-passing PyTorch "
+            "resolve",
+            debug.MessageType.PERFORMANCE,
+        )
+
     def _grow_plan(self, n_cams: int, n_draws: int, n_tris: int,
-                   lit: bool) -> None:
+                   n_ui: int, lit: bool, has_ui: bool) -> None:
         p = self.plan
         tri_cap = _cap_growth(n_tris, _GRANULE, p.tri_cap)
         spill_cap = _cap_growth(int(self._spill_headroom * n_tris), _GRANULE,
@@ -278,7 +330,9 @@ class ForwardRenderingFunction:
         raster = self._apply_blend_parity(raster, n_tris)
         new = FramePlan(raster=raster, cam_cap=max(n_cams, p.cam_cap),
                         draw_cap=_next_pow2(n_draws, p.draw_cap),
-                        tri_cap=tri_cap, lit=lit)
+                        tri_cap=tri_cap,
+                        ui_tri_cap=_next_pow2(n_ui, p.ui_tri_cap),
+                        has_ui=has_ui, lit=lit)
         if new != p:
             self.plan = new
 
@@ -389,23 +443,27 @@ class ForwardRenderingFunction:
         """Record one frame; the returned tensors are still computing."""
         inputs = self.build_frame_inputs(render_device, render_resources,
                                          scale_factor, window_size)
-        return frame_body(self.plan, self.mesh_state, *inputs)
+        return frame_body(self.plan, self.mesh_state, *inputs,
+                          ui_state=self.ui_state)
 
     def build_frame_inputs(self, render_device, render_resources,
                            scale_factor, window_size):
         """Grow the plan, then assemble the frame's inputs: host arrays for
         per-camera state, device tensors for textures, MVPs and the cached
         triangle tables; for lit frames also the models (device), the
-        lights, inverse view-projections and eyes (host)."""
-        if render_resources.ui and render_resources.ui_indices.len > 0:
-            raise NotImplementedError("the UI overlay is not ported yet")
+        lights, inverse view-projections and eyes (host); last the UI
+        overlay (None when the frame has none)."""
         cams = render_resources.cameras
         lit = any(getattr(c, "light", None) is not None for c in cams)
         n_draws = max((len(c.mesh_renderers) for c in cams), default=0)
         n_tris = max((sum(m.triangle_count for m in c.mesh_renderers)
                       for c in cams), default=0)
+        ui_elements = render_resources.ui
+        has_ui = bool(ui_elements) and render_resources.ui_indices.len > 0
         self._grow_plan(max(len(cams), 1), max(n_draws, 1), max(n_tris, 1),
-                        lit)
+                        max(render_resources.ui_indices.len // 3, 1), lit,
+                        has_ui)
+        self._check_k3_envelope()
         plan = self.plan
         dev = render_device.device
         texels, toff, tw, th = texture_tensors(
@@ -455,9 +513,56 @@ class ForwardRenderingFunction:
                 t = t.pin_memory()
             return t.to(dev, non_blocking=True)
 
+        ui = None
+        if plan.has_ui:
+            ui = self._ui_inputs(render_resources, scale_factor, window_size,
+                                 upload)
         return (texels, toff, tw, th, CLEAR_COLOR, cam_valid, viewports,
                 scissors, upload(mvps), *tables,
-                upload(models) if plan.lit else None, lights, inv_vps, eyes)
+                upload(models) if plan.lit else None, lights, inv_vps, eyes,
+                ui)
+
+    def _ui_inputs(self, render_resources, scale_factor, window_size,
+                   upload):
+        """The UI overlay on the host (ref: ui.vert:16-18): points to clip
+        space through the window size over the scale factor, uv, vertex
+        colors and texture slots, ``ui_tri_cap`` rows; then the window's
+        viewport and scissor."""
+        U = self.plan.ui_tri_cap
+        ui_clip = np.zeros((U, 3, 4), np.float32)
+        ui_clip[..., 3] = 1.0
+        ui_uv = np.zeros((U, 3, 2), np.float32)
+        ui_colors = np.zeros((U, 3, 4), np.float32)
+        ui_tex = np.zeros((U,), np.int32)
+        ui_valid = np.zeros((U,), bool)
+        win_w, win_h = window_size
+        verts = render_resources.ui_vertices.data()    # [N, 8]
+        inds = render_resources.ui_indices.data()      # [M]
+        screen_pts = (float(win_w) / float(scale_factor),
+                      float(win_h) / float(scale_factor))
+        t = 0
+        for el in render_resources.ui:
+            tri_idx = inds[el.index_offset:el.index_offset + el.index_len]
+            tri_idx = (tri_idx.reshape(-1, 3).astype(np.int64)
+                       + el.vertex_offset)
+            n = min(len(tri_idx), U - t)
+            if n <= 0:
+                break
+            v = verts[tri_idx[:n]]             # [n, 3, 8]
+            ui_clip[t:t + n, :, 0] = 2.0 * v[..., 0] / screen_pts[0] - 1.0
+            ui_clip[t:t + n, :, 1] = 2.0 * v[..., 1] / screen_pts[1] - 1.0
+            ui_clip[t:t + n, :, 2] = 0.0
+            ui_uv[t:t + n] = v[..., 2:4]
+            ui_colors[t:t + n] = v[..., 4:8]
+            ui_tex[t:t + n] = el.texture.slot
+            ui_valid[t:t + n] = True
+            t += n
+        window_viewport = np.array(
+            [0, 0, float(win_w), float(win_h), 0.0, 1.0], np.float32)
+        window_scissor = np.array([0, 0, int(win_w), int(win_h)], np.int32)
+        return (upload(ui_clip), upload(ui_uv), upload(ui_colors),
+                upload(ui_tex), upload(ui_valid), window_viewport,
+                window_scissor)
 
     def _triangle_tables(self, render_device, cams, cam_sigs, plan):
         """Per-camera triangle tables [C, T, ...] (corners, draw, valid,

@@ -11,11 +11,17 @@ Two entries, as in the JAX package:
   vertex stage, the near clip or cull with the world normals riding the
   attribute slot, setup in PyTorch, and the normal/w planes as extra rows.
 
-Both then bin, run the K3 visibility kernel and shade.  With
-``RasterPlan.peel2`` K3 also returns layer 2, the depth-record holder just
-before each pixel's winner drew, which is shaded into the framebuffer
-first, then the winner over it: the last two steps of the reference's
-per-fragment blend chain.
+Both then bin, resolve visibility and shade.  The K3 kernel resolves the
+depth states it supports (test and write with LESS or LESS_OR_EQUAL); every
+other state takes the reference's last-passing resolve
+(``ops/visibility.py::rasterize_visibility_last_passing``), chosen from the
+pipeline state before anything launches.  With ``RasterPlan.peel2`` K3
+also returns layer 2, the depth-record holder just before each pixel's
+winner drew, which is shaded into the framebuffer first, then the winner
+over it: the last two steps of the reference's per-fragment blend chain.
+
+Exact mode (``RasterPlan.exact``) draws ``mesh_pass``'s triangles one by
+one through ``ops/raster_exact.py``, as ``ui_pass`` draws the UI overlay.
 """
 
 from __future__ import annotations
@@ -34,9 +40,14 @@ from tyleri_tpu_torch.ops.clip import (
     near_cull_triangles,
 )
 from tyleri_tpu_torch.ops.raster_cuda import rasterize_visibility
+from tyleri_tpu_torch.ops.raster_exact import rasterize_exact
 from tyleri_tpu_torch.ops.setup import TriangleSetup, setup_triangles
 from tyleri_tpu_torch.ops.setup_cuda import fused_setup
 from tyleri_tpu_torch.ops.shade import shade_visibility
+from tyleri_tpu_torch.ops.visibility import (
+    k3_supports,
+    rasterize_visibility_last_passing,
+)
 
 
 def _cdiv(a, b):
@@ -63,6 +74,10 @@ class RasterPlan:
     valid_cap: int = 0         # dense slots for live narrow triangles
     near_clip: bool = True     # False: cull crossers and report them
     peel2: bool = False        # two-layer blend (K3 carries layer 2)
+    exact: bool = False        # ordered per-fragment drawing (parity mode)
+    # sampler anisotropy: above 1, the deferred shade takes this many
+    # bilinear taps along each pixel's footprint (exact mode stays bilinear)
+    aniso_taps: int = 0
 
     @property
     def grid_w(self) -> int:
@@ -180,17 +195,33 @@ def mesh_pass_fused(plan: RasterPlan, state: PipelineState, color, depth,
 def mesh_pass(plan: RasterPlan, state: PipelineState, color, depth, clip,
               uv, tex_id, tri_valid, viewport, scissor, texels, tex_offset,
               tex_width, tex_height, normals=None, lit_params=None):
-    """One camera's mesh pass from clip-space triangles (lit frames).
-    clip f32 [T, 3, 4], uv f32 [T, 3, 2], tex_id i32 [T], tri_valid bool
-    [T]; normals f32 [T, 3, 3] world-space corner normals and lit_params =
-    (light [12], inv_vp [4, 4], eye [3]) on the host.  Returns (color,
-    depth, PassStats, order_map)."""
+    """One camera's mesh pass from clip-space triangles (lit frames and
+    exact mode).  clip f32 [T, 3, 4], uv f32 [T, 3, 2], tex_id i32 [T],
+    tri_valid bool [T]; normals f32 [T, 3, 3] world-space corner normals
+    and lit_params = (light [12], inv_vp [4, 4], eye [3]) on the host.
+    Returns (color, depth, PassStats, order_map); the order map is None in
+    exact mode, which has no visibility buffer."""
     lit = normals is not None and lit_params is not None
+    if lit and plan.exact:
+        raise NotImplementedError(
+            "lit shading is a visibility-path feature; exact mode renders "
+            "unlit (the reference's fragment path)")
     # normals ride the uv slot through the near clip (its rotate/lerp is
     # shape-agnostic on the attribute axis)
     attrs = torch.cat([uv, normals], dim=-1) if lit else uv
     clip_fn = near_clip_triangles if plan.near_clip else near_cull_triangles
     ct = clip_fn(clip, attrs, tex_id, tri_valid, extra_cap=plan.clip_cap)
+    if plan.exact:
+        color, depth = rasterize_exact(
+            color, depth, ct.clip, ct.uv, ct.tex_id, ct.valid, viewport,
+            scissor, texels, tex_offset, tex_width, tex_height, state=state,
+            order=ct.order)
+        zero = torch.zeros((), dtype=torch.int32, device=color.device)
+        return (color, depth,
+                PassStats(zero, zero, ct.overflow, ct.crossings, zero, zero,
+                          torch.zeros((0,), dtype=torch.int32,
+                                      device=color.device)),
+                None)
     dims = setup_dims(plan)
     su = setup_triangles(ct.clip, ct.uv[..., :2], ct.tex_id, ct.valid,
                          viewport, scissor, order=ct.order,
@@ -228,11 +259,18 @@ def _raster_binned(plan: RasterPlan, state: PipelineState, color, depth, su,
         entry_cap=plan.entry_cap, max_tiles_per_tri=plan.max_tiles_per_tri,
         broad_cap=plan.broad_cap, spill_cap=plan.spill_cap,
         valid_cap=plan.valid_cap, spill_level_caps=plan.spill_level_caps)
-    vis = rasterize_visibility(
-        binned, depth, scissor, fb_w=plan.fb_w, fb_h=plan.fb_h,
-        depth_state=state.depth, chunk=plan.chunk, peel2=plan.peel2,
-        **setup_dims(plan))
-    layers = list(vis) if plan.peel2 else [vis]   # (vis, vis2)
+    kw = dict(fb_w=plan.fb_w, fb_h=plan.fb_h, depth_state=state.depth,
+              **setup_dims(plan))
+    # the resolve follows the depth state (the reference's _use_pallas,
+    # passes.py:170-196); peel2 is K3's, off on the other route
+    k3 = k3_supports(state.depth)
+    peel2 = plan.peel2 and k3
+    if k3:
+        vis = rasterize_visibility(binned, depth, scissor, chunk=plan.chunk,
+                                   peel2=peel2, **kw)
+    else:
+        vis = rasterize_visibility_last_passing(binned, depth, scissor, **kw)
+    layers = list(vis) if peel2 else [vis]   # (vis, vis2)
     vis = layers[0]
     lit = None
     if lit_params is not None:
@@ -242,10 +280,41 @@ def _raster_binned(plan: RasterPlan, state: PipelineState, color, depth, su,
     # layer 2 blends into the incoming framebuffer first, the winner over it
     for layer in reversed(layers):
         color = shade_visibility(layer, texels, tex_offset, tex_width,
-                                 tex_height, state.blend, color, lit=lit)
+                                 tex_height, state.blend, color, lit=lit,
+                                 aniso_taps=plan.aniso_taps)
     pass_order = torch.where(vis.owner >= 0, vis.order,
                              torch.full_like(vis.order, -1.0))
     stats = PassStats(binned.overflow, torch.zeros_like(binned.overflow),
                       clip_overflow, clip_crossings, binned.dense_demand,
                       binned.num_entries, binned.level_demand)
     return color, vis.depth, stats, pass_order
+
+
+def ui_pass(state: PipelineState, color, depth, ui_clip, ui_uv, ui_color,
+            ui_tex, ui_valid, viewport, scissor, texels, tex_offset,
+            tex_width, tex_height):
+    """The UI overlay: ordered exact rasterization with vertex colors.
+    ui_clip f32 [U, 3, 4], ui_uv f32 [U, 3, 2], ui_color f32 [U, 3, 4],
+    ui_tex i32 [U], ui_valid bool [U].  Returns (color, depth).
+
+    The reference records the UI before any mesh, with depth test and
+    write at z = 0 (ref: forward_rendering/mod.rs:291-296, ui.vert:16-18),
+    so UI pixels occlude the mesh fragments behind them.  The caller skips
+    the pass when the frame has no UI (FramePlan.has_ui)."""
+    return rasterize_exact(
+        color, depth, ui_clip, ui_uv, ui_tex, ui_valid, viewport, scissor,
+        texels, tex_offset, tex_width, tex_height, state=state,
+        with_vertex_color=True, vertex_color=ui_color,
+        # UI quads are small: tight windows bound each one's cost
+        window=64)
+
+
+def ui_points_to_clip(ui_pos_points, screen_size_points):
+    """The UI vertex shader (ref: src/pipeline/glsl/ui.vert:16-18):
+    clip = (2 p / screen_size - 1, 0, 1); [..., 2] points -> [..., 4]."""
+    p = torch.as_tensor(ui_pos_points, dtype=torch.float32)
+    sw, sh = (float(v) for v in screen_size_points)
+    x = 2.0 * p[..., 0] / sw - 1.0
+    y = 2.0 * p[..., 1] / sh - 1.0
+    return torch.stack([x, y, torch.zeros_like(x), torch.ones_like(x)],
+                       dim=-1)

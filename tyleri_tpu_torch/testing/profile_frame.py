@@ -108,14 +108,12 @@ def main(argv=None) -> int:
     win.flush()
     converged = len(messages)
 
-    stream = dev.queue.stream
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     with stage_timers() as host:
-        start.record(stream)
+        # events ordered through the device's queue pool
+        start = dev.present_queues.event(enable_timing=True)
         t0 = time.perf_counter()
         render(win, rig, [t] * n)
-        end.record(stream)
+        end = dev.present_queues.event(enable_timing=True)
         win.flush()
         host_ms = (time.perf_counter() - t0) * 1e3 / n
     end.synchronize()

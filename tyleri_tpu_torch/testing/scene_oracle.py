@@ -16,6 +16,8 @@ u8 image.  Two blend semantics:
 Cameras with a DirectionalLight shade Blinn-Phong, with world-space corner
 normals (the ``nrm`` staging through each draw's inverse-transpose model
 rotation), the light, the inverse view-projection and the eye.
+
+``ui_oracle`` draws a scene's UI overlay alone, as the UI pass does.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 
 from tyleri_tpu_torch.pipeline.state import BlendState
 from tyleri_tpu_torch.testing import oracle
+from tyleri_tpu_torch.utils.math3d import Rect2D, Viewport
 
 CLEAR_COLOR = (0.0, 0.0, 0.0, 0.0)
 
@@ -98,3 +101,30 @@ def mismatch_fraction(got_u8: np.ndarray, want_u8: np.ndarray,
     and the blend-deviation measure)."""
     d = np.abs(got_u8.astype(np.int16) - want_u8.astype(np.int16))
     return float((d > tol).any(axis=-1).mean())
+
+
+def ui_oracle(render_device, render_resources, ui_state, resolution,
+              scale_factor: float = 1.0):
+    """f64 (color [H, W, 4], depth [H, W]) of a scene's UI overlay alone,
+    drawn in element order over the clear color: points to clip space
+    through the window size over the scale factor (ui.vert:16-18), vertex
+    color times the element's texture."""
+    W, H = resolution
+    arena = render_device.memory_allocator.texture_arena
+    color = np.zeros((H, W, 4), np.float64)
+    color[:] = CLEAR_COLOR
+    depth = np.ones((H, W), np.float64)
+    verts = np.asarray(render_resources.ui_vertices.data(), np.float64)
+    inds = render_resources.ui_indices.data()
+    screen = (W / float(scale_factor), H / float(scale_factor))
+    vp, sc = Viewport(0, 0, W, H), Rect2D(0, 0, W, H)
+    for el in render_resources.ui:
+        idx = (inds[el.index_offset:el.index_offset + el.index_len]
+               .astype(np.int64) + el.vertex_offset)
+        tri = idx.reshape(-1, 3)
+        oracle.rasterize(color, depth,
+                         oracle.make_ui_clip(verts[:, :2], idx, screen),
+                         verts[tri][..., 2:4], ui_state, vp, sc,
+                         texture=_texture(arena, el.texture.slot),
+                         vertex_color=verts[tri][..., 4:8])
+    return color, depth

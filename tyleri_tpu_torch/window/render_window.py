@@ -7,8 +7,9 @@
   ---------                             ----
   steal available RenderScene           take the available scene object
   acquire_next_image                    ring-slot index from the swapchain
-  rendering_function.record(...)        kernels enqueued on the device's
-                                        dispatch stream
+  pop a present queue                   pop a DispatchQueue (its own CUDA
+                                        stream) from the device's pool
+  rendering_function.record(...)        kernels enqueued on that stream
   queue_present                         on-device UNORM8 quantize plus async
                                         copies of the image and the frame's
                                         stats into pinned host memory
@@ -33,6 +34,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from tyleri_tpu_torch.device.builders import RenderDeviceBuilder
 from tyleri_tpu_torch.scene.render_scene import RenderScene
 from tyleri_tpu_torch.utils.profiling import FrameProfiler
 from tyleri_tpu_torch.window.swapchain import ImageViewSwapchain
@@ -104,6 +106,12 @@ class RenderWindow:
             raise ValueError(f"unsupported composite_alpha {composite_alpha!r}")
         self.render_device = render_device
         self.window_handle = window_handle or WindowHandle()
+        # surface-support re-check at window creation
+        # (ref: render_window.rs:62-75)
+        if not RenderDeviceBuilder._supports_presentation(
+                render_device.device, self.window_handle):
+            raise ValueError(f"device {render_device.device} cannot present "
+                             f"to {self.window_handle!r}")
         self._scale_factor = float(scale_factor)
         self.swapchain = ImageViewSwapchain(resolution,
                                             present_mode=present_mode)
@@ -163,14 +171,19 @@ class RenderWindow:
         image_index = self.swapchain.acquire_next_image()
 
         rf = self.rendering_function
-        with device.queue.context():
-            frame = rf.record(device, scene.render_resources,
-                              self._scale_factor, self.swapchain.resolution)
-            plan = rf.plan
-            image = _to_host(quantize_unorm8(
-                frame.color, opaque=self.composite_alpha == "opaque"))
-            stats = _to_host(frame.stats_vector())
-        fence = device.queue.fence()
+        queue = device.present_queues.pop()
+        try:
+            with queue.context():
+                frame = rf.record(device, scene.render_resources,
+                                  self._scale_factor,
+                                  self.swapchain.resolution)
+                plan = rf.plan
+                image = _to_host(quantize_unorm8(
+                    frame.color, opaque=self.composite_alpha == "opaque"))
+                stats = _to_host(frame.stats_vector())
+            fence = queue.fence()
+        finally:
+            device.present_queues.push(queue)
 
         previous = self._using.pop(image_index, None)
         self._using[image_index] = _InFlight(frame, scene, plan, image,
