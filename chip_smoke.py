@@ -9,7 +9,9 @@ Phases, one printed line each or more; any failure exits non-zero:
    and each kernel's registers and spill stores from ptxas's report;
 3. k1k2: K1+K2 (fused setup) against its plain PyTorch version on a
    1M-triangle random table (crossers, back faces, degenerate and
-   off-screen rows) and on the sponza table: bit-equal;
+   off-screen rows) and on the sponza table: bit-equal; the same with the
+   draw masks (2, 1) and (3, 2) of a mesh's draws axis, timed on sponza
+   beside the unmasked kernel;
 4. k3: K3 (visibility resolve, base variant) against its plain version on
    the binned table of one sponza frame at 1920x1080: bit-equal; the
    pixels its early exit moved off the no-exit resolve, at most
@@ -66,9 +68,29 @@ Phases, one printed line each or more; any failure exits non-zero:
    the sponza 1080p tables of every tile height, for every variant whose
    maps differ); P2 equal on tables whose products are exact, and on the
    tool's table within exp_mxu.compare's tolerance, the share of pixels
-   with another winner printed.
+   with another winner printed;
+14. mesh: (a) a 1x1 (draws, tiles) mesh on NCCL, world size 1: config 2 at
+   800x600 through RenderWindow(device_mesh=...), equal to the single-card
+   window's frame bit for bit; (b) 4 ranks on the one card over gloo (NCCL
+   needs one card a rank) as a 2x2 mesh: config 5 at 1920x1080, draws 0
+   and 2 on draws row 0, draw 1 on row 1, bands of 540 rows; K1+K2 (draw
+   masks (2, 1) and the rank's) and K3 base on the lower band of draws row
+   1, its viewport and scissor moved into the band, bit-equal to their
+   plain versions; the gathered frame bit-equal to its bands and draw
+   shares rendered and composited on the one card, and within 1 % of the
+   single-card frame in winning triangles, in the presented image (more
+   than 1 u8 off) and, where the winner is the same, in depth (more than
+   SAME_WINNER_STEPS D16 steps off, none more than SAME_WINNER_MAX_DZ),
+   its depth and color shares printed beside; one masked K1+K2 and one K3
+   a rank a frame, every rank presenting the same image, and each rank's
+   steady frame time (4 ranks share the card: no scaling figure); (c) the
+   same ranks on config 4 at 1920x1080 under "auto": peel2 remaps the mesh
+   to 1x4 with one message a rank; K1+K2 and K3 peel2 bit-equal to their
+   plain versions on the 270-row band below the first that the frame
+   covers most; bit-equal on one card likewise and within 0.2 % of the
+   single-card peel2 frame.
 
-Every path (7 to 13 and the counter's measurement in 5) runs with the
+Every path (7 to 14 and the counter's measurement in 5) runs with the
 kernels' launch counts set to 0 just before it and read just after.  Each
 kernel's bound is the largest of its bytes (each input read once, each
 output written once, what this run's data needs) over 3.35 TB/s, its f32
@@ -121,6 +143,7 @@ K1K2_OPS_PER_ROW = 300
 K3_OPS = {"base": 29, "counts": 29, "peel2": 35}
 K3_MAPS = 7        # owner, z, order, uw, vw, iw, tex: 4 bytes a pixel each
 ENTRY_BYTES = 96   # 24 f32 channels
+DRAW_MODS = ((2, 1), (3, 2))   # K1+K2's draw masks checked in phase 3
 
 
 def log(phase: str, msg: str) -> None:
@@ -235,18 +258,35 @@ def pass_inputs(device, rig, resolution, t):
     rig.fill(scene, t)
     inputs = rf.build_frame_inputs(device, scene.render_resources, 1.0,
                                    resolution)
+    return rf, first_pass(inputs)
+
+
+def first_pass(inputs, band_y0=0, band_h=None):
+    """The first camera's pass of a frame's inputs; with ``band_h``, its
+    viewport and scissor moved into the band from row ``band_y0``, as
+    ``frame_body`` moves them on a mesh."""
+    from tyleri_tpu_torch.rendering.forward import (
+        _shift_scissor,
+        _shift_viewport,
+    )
+
     (texels, toff, tw, th, _, _, viewports, scissors, mvps, corners,
      tri_draw, tri_valid0, tri_tex) = inputs[:13]
-    return rf, dict(corners=corners[0], tri_draw=tri_draw[0],
-                    tri_tex=tri_tex[0], tri_valid=tri_valid0[0],
-                    mvps=mvps[0], viewport=viewports[0], scissor=scissors[0])
+    viewport, scissor = viewports[0], scissors[0]
+    if band_h is not None:
+        viewport = _shift_viewport(viewport, band_y0)
+        scissor = _shift_scissor(scissor, band_y0, band_h)
+    return dict(corners=corners[0], tri_draw=tri_draw[0], tri_tex=tri_tex[0],
+                tri_valid=tri_valid0[0], mvps=mvps[0], viewport=viewport,
+                scissor=scissor)
 
 
-def binned_pass(rf, sp):
+def binned_pass(rf, sp, plan=None, draw_mod=None):
     """Setup, near clip and binning of one pass, as mesh_pass_fused runs
-    them, with the spill and broad capacities grown as the frame loop
-    grows them on overflow until nothing is dropped.  Returns the table,
-    the tile dims and the setup rows the table was gathered from."""
+    them (under ``plan``, else ``rf.plan``, with the draw mask
+    ``draw_mod``), with the spill and broad capacities grown as the frame
+    loop grows them on overflow until nothing is dropped.  Returns the
+    table, the tile dims and the setup rows the table was gathered from."""
     from tyleri_tpu_torch.ops import setup_cuda
     from tyleri_tpu_torch.ops.binning import bin_triangles, spill_rows
     from tyleri_tpu_torch.rendering.passes import (
@@ -254,22 +294,24 @@ def binned_pass(rf, sp):
         setup_dims,
     )
 
-    plan = rf.plan.raster
-    dims = setup_dims(plan)
+    plan = plan or rf.plan
+    raster = plan.raster
+    dims = setup_dims(raster)
     su, _, crossed = setup_cuda.fused_setup(
         sp["corners"], sp["tri_draw"], sp["tri_tex"], sp["tri_valid"],
-        sp["mvps"], True, sp["viewport"], sp["scissor"], **dims)
+        sp["mvps"], True, sp["viewport"], sp["scissor"], draw_mod=draw_mod,
+        **dims)
     su, _ = _fused_clip_subset(
         su, crossed, (sp["corners"], sp["tri_draw"], sp["tri_tex"]),
         sp["mvps"], sp["viewport"], sp["scissor"], rf.mesh_state,
-        plan.clip_cap, dims)
-    spill_cap, broad_cap = plan.spill_cap, plan.broad_cap
+        raster.clip_cap, dims)
+    spill_cap, broad_cap = raster.spill_cap, raster.broad_cap
     for _ in range(8):
         binned = bin_triangles(
-            su, grid_w=plan.grid_w, grid_h=plan.grid_h,
-            entry_cap=(rf.plan.tri_cap + plan.clip_cap + spill_rows(
-                spill_cap, plan.max_tiles_per_tri)),
-            max_tiles_per_tri=plan.max_tiles_per_tri, broad_cap=broad_cap,
+            su, grid_w=raster.grid_w, grid_h=raster.grid_h,
+            entry_cap=(plan.tri_cap + raster.clip_cap + spill_rows(
+                spill_cap, raster.max_tiles_per_tri)),
+            max_tiles_per_tri=raster.max_tiles_per_tri, broad_cap=broad_cap,
             spill_cap=spill_cap)
         if not int(binned.overflow):
             return binned, dims, su
@@ -314,9 +356,27 @@ def phase_setup(device, T, resolution, records, grid_n=420):
     n_live = int(got[0].valid.sum())
     su, _, crossed = got
     rows = args[0].shape[0]
+    # the draw mask of a mesh's draws axis, on both tables; the same bytes
+    # and operations, so the same bound
+    masked_ms = {}
+    for dm in DRAW_MODS:
+        for what, a in (("random", (*rand, True, viewport, scissor)),
+                        ("sponza", args)):
+            m_got = setup_cuda.fused_setup(*a, draw_mod=dm, **dims)
+            m_want = setup_cuda.fused_setup_reference(*a, draw_mod=dm,
+                                                      **dims)
+            err = max(err, max_abs_err([(m_got[0].channels,
+                                         m_want[0].channels)]))
+            if not setup_equal(m_got, m_want):
+                raise AssertionError(f"fused_setup with draw_mod {dm} "
+                                     f"differs from its plain version on "
+                                     f"the {what} table")
+        masked_ms[str(dm)] = graph_ms(
+            lambda: setup_cuda.fused_setup(*args, draw_mod=dm, **dims),
+            reps=20)
     records["fused_setup"] = dict(
         max_abs_err=err, ms=g_ms, back_to_back_ms=ms, plain_ms=plain_ms,
-        library_ms=None,
+        library_ms=None, masked_ms=masked_ms,
         **bound_fields(bound(
             bytes_of(*args[:5], su.channels, su.valid, su.tile_lo,
                      su.tile_hi, crossed), K1K2_OPS_PER_ROW * rows)))
@@ -325,6 +385,10 @@ def phase_setup(device, T, resolution, records, grid_n=420):
         f"by CUDA graph ({ms:.4f} ms back to back), plain {plain_ms:.4f} ms; "
         f"{share(records['fused_setup'])}; no single PyTorch call computes "
         f"it")
+    log("k1k2", "draw mask: bit-equal on both tables for " + ", ".join(
+        f"draw_mod {k}" for k in masked_ms) + "; on sponza by CUDA graph "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in masked_ms.items())
+        + f" beside {g_ms:.4f} ms unmasked")
     return rf, sp
 
 
@@ -1113,6 +1177,438 @@ def phase_depth_states(build_device, launches, resolution=(800, 600),
         f"moves {moved:.2%} px more than 1 u8 off the bilinear shade")
 
 
+MESH_WORLD = 4          # ranks of phase 14's (b) and (c), on the one card
+MESH_CONVERGE = 24      # frames before the checks: past the clip skip (16)
+MESH_STEADY = 10        # timed frames a rank
+MESH_JOIN_S = 480       # the ranks' deadline
+HYBRID_BUDGET = 0.01    # tests/test_parallel.py's budgets
+PEEL2_MESH_BUDGET = 0.002
+BAND_DEPTH_TOL = 1.6e-5  # a D16 step, tests/test_parallel.py's band tolerance
+# where a mesh's pixel keeps the single card's winner, its depth may still
+# move: band-local coordinates round a steep plane's constant differently
+# in f32.  At most a budget's share of those pixels moves more than
+# SAME_WINNER_STEPS D16 steps, and none more than SAME_WINNER_MAX_DZ
+# (twice the 0.0197 that sponza's lower band reads on the CPU)
+SAME_WINNER_STEPS = 16
+SAME_WINNER_MAX_DZ = 0.04
+
+
+def record_once(dev, rf, rig, t, resolution, mesh=None):
+    """One more frame of a converged window's plan, recorded on a queue of
+    the pool (``record``, or ``record_sharded`` and gathered on a mesh):
+    its depth, color and order maps on the host."""
+    import tyleri_tpu_torch as tt
+    from tyleri_tpu_torch.parallel.sharding import gather_frame
+
+    scene = tt.RenderScene()
+    rig.fill(scene, t)
+    q = dev.present_queues.pop()
+    try:
+        with q.context():
+            if mesh is None:
+                frame = rf.record(dev, scene.render_resources, 1.0,
+                                  resolution)
+            else:
+                frame = gather_frame(rf.record_sharded(
+                    dev, scene.render_resources, 1.0, resolution, mesh),
+                    rf.frame_mesh, resolution[1])
+            stats = frame.stats_vector()[:4].cpu().tolist()
+            out = {k: getattr(frame, k).cpu().numpy()
+                   for k in ("depth", "color", "order")}
+    finally:
+        dev.present_queues.push(q)
+    if any(stats):
+        raise AssertionError(f"overflow or crossers after convergence: "
+                             f"{stats}")
+    return out
+
+
+def band_kernels(rf, inputs, bplan, band_y0, draw_mod, what) -> str:
+    """K1+K2 and K3 at the shapes one rank's band gives them, against their
+    plain versions bit for bit: the band's plan (its height need not be a
+    multiple of the tile height), the viewport and scissor moved into the
+    band, the rank's draw mask and phase 3's first, and K3's variant (base
+    or peel2) as the plan has it.  Returns the line that says so."""
+    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
+    from tyleri_tpu_torch.rendering.passes import setup_dims
+
+    raster = bplan.raster
+    W, H = raster.fb_w, raster.fb_h
+    sp = first_pass(inputs, band_y0, H)
+    dims = setup_dims(raster)
+    args = (sp["corners"], sp["tri_draw"], sp["tri_tex"], sp["tri_valid"],
+            sp["mvps"], True, sp["viewport"], sp["scissor"])
+    # phase 3's first mask and the rank's, on the band
+    mods = tuple(dict.fromkeys((DRAW_MODS[0], draw_mod)))
+    for dm in mods:
+        got = setup_cuda.fused_setup(*args, draw_mod=dm, **dims)
+        want = setup_cuda.fused_setup_reference(*args, draw_mod=dm, **dims)
+        if not setup_equal(got, want):
+            raise AssertionError(f"{what}: fused_setup with draw_mod {dm} "
+                                 f"differs from its plain version on the "
+                                 f"band")
+    live = int(got[0].valid.sum())
+    binned, dims, _ = binned_pass(rf, sp, bplan, draw_mod)
+    depth0 = torch.ones((H, W), device=sp["corners"].device)
+    kw = dict(fb_w=W, fb_h=H, depth_state=rf.mesh_state.depth,
+              chunk=raster.chunk, **dims)
+    if raster.peel2:
+        vis = peel2_check(binned, depth0, sp["scissor"], kw, what)[0]
+    else:
+        vis = raster_cuda.rasterize_visibility(binned, depth0, sp["scissor"],
+                                               **kw)
+        want = raster_cuda.rasterize_visibility_stream_reference(
+            binned, depth0, sp["scissor"], **kw)
+        if not layers_bit_equal(vis, want):
+            bad = int(((vis.depth != want.depth)
+                       | (vis.owner != want.owner)).sum())
+            raise AssertionError(f"{what}: rasterize_visibility differs from "
+                                 f"its plain version at {bad} px")
+    if not live or not int((vis.owner >= 0).sum()):
+        raise AssertionError(f"{what}: the band drew nothing ({live} live "
+                             f"rows)")
+    return ("K1+K2 (draw_mod " + ", ".join(str(dm) for dm in mods)
+            + f"; {live} live rows under the rank's) and K3 "
+            f"{'peel2' if raster.peel2 else 'base'} "
+            f"({int(binned.num_entries)} entries, "
+            f"{int((vis.owner >= 0).sum())} px covered) bit-equal to their "
+            f"plain versions on the {W}x{H} band from row {band_y0} "
+            f"({H / dims['tile_h']:g} tile rows), scissor "
+            f"{sp['scissor'].tolist()}")
+
+
+def mesh_on_one_card(dev, rig, t, resolution, plan, shape, check):
+    """The plain version of a mesh's frame, on this one card: every band
+    and draw share of an (nd, nt) mesh rendered by ``frame_body`` under the
+    ranks' plan, composited as ``parallel/sharding.py`` does with its
+    collectives (min depth bits, then the order key by the compare op, then
+    the lowest draws index), and the bands stacked.  First, the kernels of
+    the rank at (draws, tiles) ``check`` against their plain versions on
+    its band (``band_kernels``).  Returns the maps and that check's line."""
+    import tyleri_tpu_torch as tt
+    from tyleri_tpu_torch.parallel.sharding import _band_plan
+    from tyleri_tpu_torch.rendering.forward import frame_body
+
+    nd, nt = shape
+    rf = tt.ForwardRenderingFunction(dev, tt.ImageViewSwapchain(resolution))
+    rf.plan = plan
+    scene = tt.RenderScene()
+    rig.fill(scene, t)
+    inputs = rf.build_frame_inputs(dev, scene.render_resources, 1.0,
+                                   resolution)
+    if rf.plan != plan:
+        raise AssertionError("the ranks' plan did not hold on one card")
+    less = rf.mesh_state.depth.compare_op == tt.CompareOp.LESS
+    bplan = _band_plan(plan, nt)
+    di, ti = check
+    checked = band_kernels(rf, inputs, bplan, ti * bplan.raster.fb_h,
+                           (nd, di), f"the band at {check}")
+    maps = {"depth": [], "color": [], "order": []}
+    for ti in range(nt):
+        parts = [frame_body(bplan, rf.mesh_state, *inputs,
+                            ui_state=rf.ui_state,
+                            band_y0=ti * bplan.raster.fb_h, draw_mod=(nd, di))
+                 for di in range(nd)]
+        zbits = torch.stack([p.depth.view(torch.int32) for p in parts])
+        zmin = zbits.amin(0)
+        at_min = zbits == zmin
+        okey = torch.where(at_min, torch.stack([p.order for p in parts]),
+                           torch.inf if less else -torch.inf)
+        owin = okey.amin(0) if less else okey.amax(0)
+        owner = torch.argmax((at_min & (okey == owin)).to(torch.int32), 0)
+        color = torch.stack([p.color for p in parts]).gather(
+            0, owner[None, ..., None].expand(1, *owner.shape, 4))[0]
+        for k, v in (("depth", zmin.view(torch.float32)), ("color", color),
+                     ("order", owin)):
+            maps[k].append(v)
+    return {k: torch.cat(v)[:resolution[1]].cpu().numpy()
+            for k, v in maps.items()}, checked
+
+
+def mesh_window_run(dev, rig, mesh, resolution, t, blend_parity="auto"):
+    """A RenderWindow on ``mesh``: MESH_CONVERGE frames, then MESH_STEADY
+    timed ones (CUDA events through the queue pool, host clock) with the
+    kernels' counts from 0, then one more frame recorded and gathered.
+    Returns (ms, host_ms, image, counts, frame maps, plan, frame mesh
+    shape)."""
+    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
+    from tyleri_tpu_torch.window.render_window import RenderWindow
+
+    win = RenderWindow(dev, resolution=resolution, present_mode="immediate",
+                       blend_parity=blend_parity, device_mesh=mesh)
+    render_frames(win, rig, [t] * MESH_CONVERGE)
+    rf = win.rendering_function
+    plan = rf.plan
+    pool = dev.present_queues
+    setup_cuda.reset_launches()
+    raster_cuda.reset_launches()
+    start = pool.event(enable_timing=True)
+    h0 = time.perf_counter()
+    for _ in range(MESH_STEADY):
+        rig.fill(win.get_render_scene(), t)
+        win.render()
+    end = pool.event(enable_timing=True)
+    image = win.flush()
+    host_ms = (time.perf_counter() - h0) * 1e3 / MESH_STEADY
+    end.synchronize()
+    ms = start.elapsed_time(end) / MESH_STEADY
+    frame = record_once(dev, rf, rig, t, resolution, mesh)
+    counts = dict(raster_cuda.variant_launches,
+                  fused_setup=setup_cuda.launches)
+    if rf.plan != plan:
+        raise AssertionError("the plan changed after convergence")
+    return (ms, host_ms, image, counts, frame, plan,
+            tuple(rf.frame_mesh.shape))
+
+
+def mesh_rank(rank, world, store, out_dir, resolution):
+    """One rank of phase 14 (b) and (c): a gloo process group that meets
+    at the file ``store``, a 2x2 (draws, tiles) mesh on the one card;
+    config 5, then config 4 under "auto" (peel2 remaps the mesh to 1x4).
+    Rank 0 writes the gathered frames and the plan; every rank writes its
+    counts, times and image hash."""
+    import datetime
+    import hashlib
+    import os
+    import pickle
+
+    import torch.distributed as dist
+
+    import tyleri_tpu_torch as tt
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = tt.make_render_mesh(2)
+        coord = mesh.get_coordinate()
+        out = dict(rank=rank, coord=coord)
+        for key, make, t in (("config5", sponza_rig, 0.0),
+                             ("config4", config4_rig, 0.5)):
+            msgs = []
+            dev = (tt.RenderDeviceBuilder()
+                   .device_id(rank % torch.cuda.device_count())
+                   .validation_level(tt.ValidationLevel.INFO)
+                   .debug_callback(msgs.append).build())
+            rig = make(dev, resolution)
+            ms, host_ms, image, counts, frame, plan, shape = mesh_window_run(
+                dev, rig, mesh, resolution, t)
+            remaps = [m.message_id for m in msgs].count(
+                "peel2-mesh-tiles-only")
+            out[key] = dict(
+                ms=ms, host_ms=host_ms, counts=counts, remaps=remaps,
+                peel2=plan.raster.peel2, frames=MESH_STEADY + 1, shape=shape,
+                image=hashlib.sha256(image.tobytes()).hexdigest())
+            if rank == 0:
+                with open(os.path.join(out_dir, f"{key}.pkl"), "wb") as f:
+                    pickle.dump((frame, plan, image), f)
+            log("mesh", f"rank {rank} at (draws, tiles) {tuple(coord)}, "
+                f"{key} {resolution[0]}x{resolution[1]}: steady {ms:.3f} "
+                f"ms/frame by CUDA events, {host_ms:.3f} by host clock "
+                f"({world} ranks share the card and gloo stages every "
+                f"collective through the host: no scaling figure); launches "
+                f"{counts} in {MESH_STEADY + 1} frames")
+            del dev, rig, image, frame
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mesh_vs_single(got, want, image, want_image) -> dict:
+    """How far a mesh's frame is from the single-card frame: the shares of
+    pixels whose winning triangle (order map) differs, whose presented u8
+    image is more than 1 off, whose depth is more than a D16 step off (the
+    1.6e-5 tests/test_parallel.py gives its bands), and whose color is more
+    than 1e-3 off; the largest depth difference; and, where the winner is
+    the same, the share of pixels whose depth is more than
+    SAME_WINNER_STEPS D16 steps off and the largest difference there."""
+    dz = np.abs(got["depth"] - want["depth"])
+    same = got["order"] == want["order"]
+    dz_same = np.where(same, dz, 0.0)
+    return dict(
+        winner=float(1.0 - same.mean()),
+        u8=float((np.abs(image.astype(int) - want_image.astype(int))
+                  .max(-1) > 1).mean()),
+        depth=float((dz > BAND_DEPTH_TOL).mean()),
+        color=float((np.abs(got["color"] - want["color"]).max(-1) > 1e-3)
+                    .mean()),
+        max_dz=float(dz.max()),
+        depth_same=float((dz_same > SAME_WINNER_STEPS / 65535).mean()),
+        max_dz_same=float(dz_same.max()))
+
+
+def phase_mesh(build_device, launches, resolution, res_a=(800, 600)):
+    """Multi-device rendering: (a) a 1x1 mesh on NCCL, config 2 through
+    RenderWindow(device_mesh=...), equal to the single-card window's frame
+    bit for bit; (b) 4 ranks on the one card over gloo as a 2x2 mesh,
+    config 5 at full size; (c) the same ranks on config 4 under "auto",
+    peel2 remapped to 1x4.  One K1+K2 and one K3 a rank a frame; every rank
+    presents the same image; the mesh's frame is bit-equal to the same
+    bands and draw shares rendered and composited on one card
+    (``mesh_on_one_card``), and within the budget of the single-card frame
+    in its winners and its presented image."""
+    import datetime
+    import os
+    import pickle
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    import tyleri_tpu_torch as tt
+    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
+
+    # every process group of the phase meets at a file store here, not at
+    # a TCP port that another process could take first
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) NCCL, world size 1, in this process
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = tt.make_render_mesh(1)
+            dev = build_device()
+            rig = tt.scenes.config2_cube(dev, res_a)
+            images = {}
+            for name, m in (("mesh", mesh), ("single", None)):
+                win = tt.RenderWindow(dev, resolution=res_a,
+                                      present_mode="immediate",
+                                      device_mesh=m)
+                setup_cuda.reset_launches()
+                raster_cuda.reset_launches()
+                images[name] = render_frames(win, rig, [0.9] * 3)
+                counted = dict(raster_cuda.variant_launches,
+                               fused_setup=setup_cuda.launches)
+                if name == "mesh":
+                    launches["mesh_1x1"] = counted
+                if (counted["fused_setup"] != 3
+                        or raster_cuda.launches() != 3):
+                    raise AssertionError(f"1x1 {name}: launches {counted} "
+                                         "in 3 frames")
+            if not np.array_equal(images["mesh"], images["single"]):
+                raise AssertionError("the 1x1 NCCL mesh's frame differs "
+                                     "from the single-card window's")
+        finally:
+            dist.destroy_process_group()
+        log("mesh", f"(a) 1x1 mesh on NCCL, config 2 {res_a[0]}x{res_a[1]}: "
+            f"equal to the single-card window's frame bit for bit; launches "
+            f"{launches['mesh_1x1']} in 3 frames")
+        del dev, rig, win
+        torch.cuda.empty_cache()
+
+        # the single-card frames (b) and (c) are held to, on the converged
+        # plan
+        rigs = {"config5": (sponza_rig, 0.0), "config4": (config4_rig, 0.5)}
+        refs = {}
+        for key, (make, t) in rigs.items():
+            dev = build_device()
+            rig = make(dev, resolution)
+            win = tt.RenderWindow(dev, resolution=resolution,
+                                  present_mode="immediate")
+            render_frames(win, rig, [t] * MESH_CONVERGE)
+            refs[key] = (record_once(dev, win.rendering_function, rig, t,
+                                     resolution), win.flush())
+            del dev, rig, win
+            torch.cuda.empty_cache()
+
+        # (b) and (c): 4 ranks on the one card; NCCL needs a card a rank, so
+        # they share it over gloo, which stages CUDA tensors through the
+        # host
+        log("mesh", f"(b), (c): {MESH_WORLD} ranks over gloo on the one card "
+            f"as a 2x2 mesh (NCCL needs one card a rank)")
+        ctx = mp.start_processes(
+            mesh_rank, args=(MESH_WORLD, os.path.join(tmp, "gloo_store"),
+                             tmp, resolution),
+            nprocs=MESH_WORLD, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_JOIN_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.terminate()
+                raise AssertionError(f"the mesh ranks outlasted "
+                                     f"{MESH_JOIN_S} s")
+        ranks = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        frames = {}
+        for key in rigs:
+            with open(os.path.join(tmp, f"{key}.pkl"), "rb") as f:
+                frames[key] = pickle.load(f)
+    for key, budget, variant, shape in (
+            ("config5", HYBRID_BUDGET, "base", (2, 2)),
+            ("config4", PEEL2_MESH_BUDGET, "peel2", (1, MESH_WORLD))):
+        # the rank whose kernels are held to their plain versions on its
+        # band: the last draws row, in the band below the first that the
+        # single-card frame covers most
+        band_h = -(-resolution[1] // shape[1])
+        covered = [int((refs[key][0]["order"][ti * band_h:(ti + 1) * band_h]
+                        >= 0).sum()) for ti in range(1, shape[1])]
+        check = (shape[0] - 1, 1 + int(np.argmax(covered)))
+        got = [r[key] for r in ranks]
+        if len({g["image"] for g in got}) != 1:
+            raise AssertionError(f"{key}: the ranks presented different "
+                                 "images")
+        n = got[0]["frames"]
+        for g in got:
+            if (g["counts"]["fused_setup"] != n or g["counts"][variant] != n
+                    or sum(g["counts"].values()) != 2 * n):
+                raise AssertionError(f"{key}: rank launches {g['counts']} "
+                                     f"in {n} frames")
+        peel2 = key == "config4"
+        if any(g["peel2"] != peel2 or g["remaps"] != int(peel2)
+               or tuple(g["shape"]) != shape for g in got):
+            raise AssertionError(
+                f"{key}: peel2, remap messages, mesh "
+                f"{[(g['peel2'], g['remaps'], g['shape']) for g in got]}")
+        launches[f"mesh_2x2_{key}"] = {
+            k: sum(g["counts"][k] for g in got) for k in got[0]["counts"]}
+        frame, plan, image = frames[key]
+        make, t = rigs[key]
+        dev = build_device()
+        plain, checked = mesh_on_one_card(dev, make(dev, resolution), t,
+                                          resolution, plan, shape, check)
+        del dev
+        torch.cuda.empty_cache()
+        log("mesh", f"({'c' if peel2 else 'b'}) {key}, the rank at (draws, "
+            f"tiles) {check}: {checked}")
+        for k in plain:
+            if not np.array_equal(frame[k].view(np.int32),
+                                  plain[k].view(np.int32)):
+                raise AssertionError(
+                    f"{key}: the mesh's {k} map differs from its bands "
+                    f"and draw shares composited on one card at "
+                    f"{int((frame[k] != plain[k]).sum())} values")
+        off = mesh_vs_single(frame, refs[key][0], image, refs[key][1])
+        if (max(off["winner"], off["u8"], off["depth_same"]) >= budget
+                or off["max_dz_same"] > SAME_WINNER_MAX_DZ):
+            raise AssertionError(f"{key}: off the single-card frame {off} "
+                                 f"(budget {budget:.2%}, depth at the same "
+                                 f"winner at most {SAME_WINNER_MAX_DZ})")
+        log("mesh", f"({'c' if peel2 else 'b'}) {key} "
+            f"{resolution[0]}x{resolution[1]} on 2x2"
+            f"{' remapped to 1x4 (said once a rank)' if peel2 else ''}, "
+            f"bands of {band_h} rows: bit-equal to "
+            f"its bands and draw shares composited on one card; against the "
+            f"single-card frame, another winning triangle at "
+            f"{off['winner']:.4%} of px, the image more than 1 u8 off at "
+            f"{off['u8']:.4%}, and where the winner is the same, depth more "
+            f"than {SAME_WINNER_STEPS} D16 steps off at "
+            f"{off['depth_same']:.4%} (budget {budget:.2%} each; max "
+            f"{off['max_dz_same']:.4g}, at most {SAME_WINNER_MAX_DZ}); "
+            f"depth more than a D16 step off at {off['depth']:.4%} (max "
+            f"{off['max_dz']:.4g}), color more than 1e-3 off at "
+            f"{off['color']:.4%} (band-local coordinates round the planes "
+            f"differently in f32); every rank presents the same image; "
+            f"launches a rank {got[0]['counts']} in {n} frames; steady "
+            f"ms/frame by CUDA events "
+            + ", ".join(f"{g['ms']:.3f}" for g in got) + ", by host clock "
+            + ", ".join(f"{g['host_ms']:.3f}" for g in got))
+
+
 # the probe kernels, the TPU kernels they replace, the tool and variant
 # whose time stands in the kernels line, and the kernel's source in csrc/
 PROBES = (
@@ -1435,6 +1931,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     probe_kernels = phase("probes", phase_probes, device, card, records,
                           launches, sponza_gather)
+    del sponza_gather
+    torch.cuda.empty_cache()
+    phase("mesh", phase_mesh, build_device, launches, SPONZA_RES)
 
     def path_sum(key):
         return sum(c.get(key, 0) for c in launches.values())

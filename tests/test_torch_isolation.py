@@ -65,7 +65,8 @@ FRAME = textwrap.dedent("""
     assert len(names) == 7, names
     for name in names:
         importlib.import_module(f"tyleri_tpu_torch.tools.{name}")
-    # the frame profiler and the card's smoke script
+    # multi-device rendering, the frame profiler and the card's smoke script
+    import tyleri_tpu_torch.parallel.sharding
     import tyleri_tpu_torch.testing.profile_frame
     import chip_smoke
     jax_modules = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
@@ -85,26 +86,34 @@ def test_cpu_frame_imports_no_jax():
     assert out.stdout.strip().endswith("ok")
 
 
-def test_package_sources_never_import_jax():
-    jax_import = re.compile(r"^\s*(import|from)\s+jax(\.|\s|$)", re.M)
-    sources = [os.path.join(ROOT, "chip_smoke.py")]
+def port_sources():
+    """Every module of the port (parallel/ included), chip_smoke.py and the
+    rank worker of tests/test_torch_parallel.py, which must run where the
+    JAX package is not installed."""
+    sources = [os.path.join(ROOT, "chip_smoke.py"),
+               os.path.join(ROOT, "tests", "torch_mesh_worker.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "tyleri_tpu_torch")):
         sources += [os.path.join(base, f) for f in files if f.endswith(".py")]
-    for path in sources:
+    assert os.path.join(ROOT, "tyleri_tpu_torch", "parallel",
+                        "sharding.py") in sources
+    return sources
+
+
+def test_package_sources_never_import_jax():
+    jax_import = re.compile(r"^\s*(import|from)\s+jax(\.|\s|$)", re.M)
+    for path in port_sources():
         with open(path) as f:
             assert not jax_import.search(f.read()), path
 
 
 def test_sources_never_import_the_jax_package():
-    """No module of the port, and not chip_smoke.py, imports ``tyleri_tpu``
-    or a module of it, by statement or by a module string handed to
-    importlib."""
+    """No module of the port, not chip_smoke.py and not the mesh tests'
+    rank worker imports ``tyleri_tpu`` or a module of it, by statement or by
+    a module string handed to importlib."""
     statement = re.compile(
         r"^\s*(?:import|from)\s+tyleri_tpu(?:\.[\w.]+)?(?:\s|,|$)", re.M)
     string = re.compile(r"[\"']tyleri_tpu(?:\.[\w.]*)?[\"']")
-    sources = [os.path.join(ROOT, "chip_smoke.py")]
-    for base, _, files in os.walk(os.path.join(ROOT, "tyleri_tpu_torch")):
-        sources += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    sources = port_sources()
     assert len(sources) > 40
     for path in sources:
         with open(path) as f:
@@ -161,16 +170,17 @@ def test_cpu_tensors_never_launch_kernels():
                                   "greater_on_visibility"])
 def test_unported_paths_raise(what):
     """What the port does not render says so instead of rendering
-    something else: multi-device rendering (not ported), the pipeline-cache
-    seed (no XLA compilation cache to seed), and GREATER on the visibility
-    path (the reference's own refusal; exact mode renders it)."""
+    something else: a device mesh that is not a (draws, tiles) DeviceMesh,
+    the pipeline-cache seed (no XLA compilation cache to seed), and GREATER
+    on the visibility path (the reference's own refusal; exact mode renders
+    it)."""
     import dataclasses
 
     import tyleri_tpu_torch as tt
 
     dev = tt.RenderDeviceBuilder().device("cpu").build()
     if what == "mesh":
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError):
             tt.RenderWindow(dev, resolution=(32, 32), device_mesh=object())
         return
     if what == "pipeline_cache":

@@ -84,6 +84,29 @@ def test_fused_setup_bit_equal(cuda_device, tiles):
         assert int(n_k) == int(n_r) > 0
 
 
+@pytest.mark.parametrize("draw_mod", [(2, 0), (2, 1), (3, 2), (7, 6)])
+def test_fused_setup_draw_mask_bit_equal(cuda_device, draw_mod):
+    """A mesh device's share of the draws: bit-equal to the plain version,
+    masked rows invalid and their crossers neither flagged nor counted."""
+    W, H = 320, 192
+    dims = dict(tile_w=16, tile_h=16, grid_w=20, grid_h=12)
+    viewport = np.asarray([0, -H / 2, W, H, 0, 1], np.float32)  # a band's
+    scissor = np.asarray([0, 0, W, H // 2], np.int32)
+    rng = np.random.default_rng(23)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in rand_scene(rng, 50_001, 7)]
+    got = setup_cuda.fused_setup(*args, True, viewport, scissor,
+                                 draw_mod=draw_mod, **dims)
+    want = setup_cuda.fused_setup_reference(*args, True, viewport, scissor,
+                                            draw_mod=draw_mod, **dims)
+    torch.cuda.synchronize()
+    assert_setup_equal(got, want)
+    masked = args[1] % draw_mod[0] != draw_mod[1]
+    assert not (got[0].valid & masked).any()
+    assert not (got[2] & masked).any()
+    assert int(got[1]) == int(got[2].sum()) > 0
+
+
 @pytest.mark.parametrize("D", [1, 7, 100, 5_000])
 @pytest.mark.parametrize("T", [1, 255, 257, 50_001])
 def test_fused_setup_blocks_and_draws(cuda_device, T, D):

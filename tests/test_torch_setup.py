@@ -219,6 +219,44 @@ def test_fused_setup_reference_matches_pallas_kernel():
     assert check_setup(su_t, su_j, "fused_setup").sum() > 300
 
 
+@pytest.mark.parametrize("draw_mod", [(1, 0), (2, 1), (3, 2)])
+def test_fused_setup_draw_mask_matches_pallas_kernel(draw_mod):
+    """The draw mask of a mesh's draws axis: only rows whose draw % n == i
+    stay, masked crossers are neither flagged nor counted, and every row
+    keeps its global order, as in the JAX kernel (setup_pallas.py:105,
+    127)."""
+    n, i = draw_mod
+    rng = np.random.default_rng(19)
+    T, D = 700, 5
+    corner, draw, tex, valid, mvps = rand_scene(rng, T, D, behind_frac=0.1)
+    corner18 = jpallas.build_corner18(
+        jnp.asarray(corner), jnp.asarray(draw), jnp.asarray(tex),
+        jnp.asarray(valid))
+    su_j, crossings_j, crossed_j = jpallas.fused_setup(
+        corner18, jnp.asarray(mvps.reshape(D, 16)), jnp.asarray(True),
+        jnp.asarray(VIEWPORT), jnp.asarray(SCISSOR),
+        (jnp.int32(n), jnp.int32(i)), draw_cap=D, interpret=True, **DIMS)
+    su_t, crossings_t, crossed_t = setup_cuda.fused_setup_reference(
+        t(corner), t(draw), t(tex), t(valid), t(mvps.reshape(D, 16)), True,
+        VIEWPORT, SCISSOR, draw_mod=draw_mod, **DIMS)
+    kept = draw % n == i
+    crossers = valid & (corner[:, 0, 2] == -3.0)   # rand_scene's crossers
+    assert (crossers & ~kept).any() or n == 1      # some of them masked
+    assert int(crossings_t) == int(crossings_j) == int(crossed_t.sum()) > 0
+    np.testing.assert_array_equal(crossed_t.numpy(),
+                                  np.asarray(crossed_j)[:T])
+    assert not (crossed_t.numpy() & ~kept).any()
+    assert not (su_t.valid.numpy() & ~kept).any()
+    live = check_setup(su_t, su_j, f"fused_setup draw_mod {draw_mod}")
+    assert live.sum() > 30
+    np.testing.assert_array_equal(
+        su_t.channels.numpy()[live, tsetup.CH_ORDER], np.nonzero(live)[0])
+    with pytest.raises(ValueError):
+        setup_cuda.fused_setup(
+            t(corner), t(draw), t(tex), t(valid), t(mvps.reshape(D, 16)),
+            True, VIEWPORT, SCISSOR, draw_mod=(n, n), **DIMS)
+
+
 def test_fused_clip_subset_splice_matches_jax():
     """The hybrid near clip: fed the same kernel output, the port's splice
     rewrites the same parent rows, appends the same extra halves with the

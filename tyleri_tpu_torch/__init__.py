@@ -31,9 +31,10 @@ pass unlit (the fused setup kernel) and lit (Blinn-Phong, the clip-space
 setup path), with the two-layer blend (peel2) that the "auto" blend policy
 engages up to 2^18 triangles; exact mode (``blend_parity="exact"``), every
 depth state (K3 resolves test+write with LESS or LESS_OR_EQUAL, the
-reference's last-passing resolve the others) and anisotropic sampling.
-Only multi-device rendering is not ported: a window given a device mesh
-raises ``NotImplementedError``.
+reference's last-passing resolve the others), anisotropic sampling, and
+multi-device rendering: ``RenderWindow(device_mesh=make_render_mesh(n))``
+renders each rank's band and share of the draws and composites them with
+``torch.distributed`` collectives (``parallel/``).
 """
 
 import importlib
@@ -54,6 +55,7 @@ _EXPORTS = {
     "CompareOp": "tyleri_tpu_torch.pipeline.state",
     "DepthFormat": "tyleri_tpu_torch.pipeline.state",
     "DepthState": "tyleri_tpu_torch.pipeline.state",
+    "make_render_mesh": "tyleri_tpu_torch.parallel.mesh",
 }
 _MODULES = {
     "scenes": "tyleri_tpu_torch.models.scenes",

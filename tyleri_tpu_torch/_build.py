@@ -5,7 +5,8 @@ started together, and links them into one shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers: the build takes seconds).
 The library lands in ``build/tyleri_tpu_torch/`` at the repository root,
 keyed by a hash of the sources and flags, and is built on the first kernel
-launch of a process.  A failed build raises; there is no fallback.
+launch of a process, under a file lock, so that processes started together
+build it once.  A failed build raises; there is no fallback.
 
 Flags: ``-fmad=false`` keeps every multiply and add separately rounded, as
 eager PyTorch does, so each kernel is bit-equal to its plain version on the
@@ -17,6 +18,7 @@ beside the library (``kernel_resources``).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -67,11 +69,23 @@ def report_path(lib_path: str | None = None) -> str:
 
 
 def build() -> str:
-    """Compile the kernels if this source hash has no library yet."""
+    """Compile the kernels if this source hash has no library yet.  Processes
+    that call it together (the ranks of a mesh) build once: the first takes
+    an exclusive lock on the build directory, the others wait for it and
+    find the library.  The operating system releases the lock (``flock``)
+    when its holder exits, so a build that was cut off leaves none behind."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(out):
+            _compile(out)
+    return out
+
+
+def _compile(out: str) -> None:
     tmp = f"{out}.{os.getpid()}.tmp"
     nvcc = _nvcc()
     objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
@@ -94,7 +108,6 @@ def build() -> str:
         f.write("".join(reports))
     os.replace(f"{tmp}.ptxas", report_path(out))
     os.replace(tmp, out)
-    return out
 
 
 def parse_ptxas(text: str) -> dict[str, tuple[int, int]]:
@@ -141,6 +154,7 @@ def _bind(lib) -> None:
     lib.ty_fused_setup.argtypes = [
         p, p, p, p, p,            # corners, tri_draw, tri_tex, tri_valid, mvps
         i, i, i,                  # T, D, cam_valid
+        i, i,                     # draw mask: keep draw % n == i
         f, f, f, f, f, f,         # viewport
         i, i, i, i,               # scissor
         i, i, i, i,               # tile shifts, grid dims

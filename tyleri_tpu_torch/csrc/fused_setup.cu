@@ -4,7 +4,10 @@
 // _plane_kernel (K2), launched by fused_setup.  The TPU needed two kernels
 // (a compile-time workaround) and a field-major corner table with a masked
 // sweep over the draw table; here one kernel reads the row-major corner
-// table and indexes mvps[draw] directly, with no draw cap.
+// table and indexes mvps[draw] directly, with no draw cap.  A row is kept
+// only where draw % mod_n == mod_i: the round-robin share of the draws that
+// a device of a mesh's draws axis renders (setup_pallas.py's draw_kept);
+// (1, 0) keeps every row.  One integer compare a row: no byte of the bound.
 //
 // Bound: bytes.  Per triangle 69 B are read (15 corner floats, draw, tex,
 // valid) and 114 B written (24 channels, valid, crossed, the tile box):
@@ -61,6 +64,7 @@ struct Params {
     const uint8_t* tri_valid;  // [T]
     const float* mvps;         // [D, 16] row-major
     int T, D, cam_valid;
+    int mod_n, mod_i;          // keep draws with draw % mod_n == mod_i
     float vx, vy, vw, vh, dmin, dmax;
     int scx, scy, scw, sch;
     int shift_x, shift_y, grid_w, grid_h;
@@ -92,7 +96,11 @@ __device__ __forceinline__ bool setup_triangle(const Params& p, int t,
     const int draw = p.tri_draw[t];
     const bool table_valid = p.tri_valid[t] != 0;
     const bool draw_ok = draw >= 0 && draw < p.D;
-    bool tri_valid = table_valid && p.cam_valid != 0 && draw_ok;
+    // the draw mask (a device's round-robin share of the draws on a mesh)
+    // folds in before the crossing test, so a masked crosser is neither
+    // flagged nor counted
+    bool tri_valid = table_valid && p.cam_valid != 0 && draw_ok
+                     && draw % p.mod_n == p.mod_i;
 
     // ---- K1: clip = MVP @ (pos, 1) per corner ----
     float m[16];
@@ -274,7 +282,7 @@ __global__ void __launch_bounds__(BLOCK) fused_setup_kernel(Params p) {
 extern "C" int ty_fused_setup(
     const float* corners, const int* tri_draw, const int* tri_tex,
     const uint8_t* tri_valid, const float* mvps,
-    int T, int D, int cam_valid,
+    int T, int D, int cam_valid, int mod_n, int mod_i,
     float vx, float vy, float vw, float vh, float dmin, float dmax,
     int scx, int scy, int scw, int sch,
     int shift_x, int shift_y, int grid_w, int grid_h,
@@ -285,8 +293,10 @@ extern "C" int ty_fused_setup(
         || (reinterpret_cast<uintptr_t>(tile_lo) & 7) != 0
         || (reinterpret_cast<uintptr_t>(tile_hi) & 7) != 0)
         return (int)cudaErrorMisalignedAddress;
+    if (mod_n < 1 || mod_i < 0 || mod_i >= mod_n)
+        return (int)cudaErrorInvalidValue;
     Params p{corners, tri_draw, tri_tex, tri_valid, mvps, T, D, cam_valid,
-             vx, vy, vw, vh, dmin, dmax, scx, scy, scw, sch,
+             mod_n, mod_i, vx, vy, vw, vh, dmin, dmax, scx, scy, scw, sch,
              shift_x, shift_y, grid_w, grid_h, cull, ccw_front,
              channels, valid, reinterpret_cast<int2*>(tile_lo),
              reinterpret_cast<int2*>(tile_hi), crossed, crossings};

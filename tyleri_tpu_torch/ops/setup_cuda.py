@@ -10,10 +10,11 @@ block's channel rows back as one contiguous run; it also counts the
 crossers, so the launch is the wrapper's only work on the card besides
 zeroing that count.
 
-Semantics: transform, then near-plane cull with a per-triangle ``crossed``
-flag (crossers are culled here; rendering/passes.py re-clips them), then
-the plane setup of ops/setup.py.  Row ``t`` of the output carries draw order
-``t``.
+Semantics: the draw mask (``draw_mod``), transform, then near-plane cull
+with a per-triangle ``crossed`` flag (crossers are culled here;
+rendering/passes.py re-clips them), then the plane setup of ops/setup.py.
+Row ``t`` of the output carries draw order ``t``, masked or not, so a
+mesh's composite compares global draw order.
 """
 
 from __future__ import annotations
@@ -41,16 +42,28 @@ def _cull_code(cull_mode, front_face):
                              FrontFace.CLOCKWISE: False}, front_face))
 
 
+def _draw_mod(draw_mod) -> tuple[int, int]:
+    n, i = (1, 0) if draw_mod is None else (int(v) for v in draw_mod)
+    if n < 1 or not 0 <= i < n:
+        raise ValueError(f"draw_mod must be (n, i) with 0 <= i < n, got "
+                         f"{draw_mod}")
+    return n, i
+
+
 def fused_setup_reference(corners, tri_draw, tri_tex, tri_valid, mvps,
                           cam_valid, viewport, scissor, *, tile_w, tile_h,
-                          grid_w, grid_h, cull_mode=None, front_face=None):
+                          grid_w, grid_h, cull_mode=None, front_face=None,
+                          draw_mod=None):
     """Plain PyTorch version of the kernel, expression by expression.
     Returns (TriangleSetup, crossings i32 [], crossed bool [T])."""
+    n, i = _draw_mod(draw_mod)
     T = corners.shape[0]
     D = mvps.shape[0]
     draw = tri_draw.long()
     draw_ok = (draw >= 0) & (draw < D)
-    valid0 = tri_valid & draw_ok & bool(cam_valid)
+    # the draw mask folds in before the crossing test: a masked crosser is
+    # neither flagged nor counted
+    valid0 = tri_valid & draw_ok & bool(cam_valid) & (draw % n == i)
     m = torch.where(draw_ok[:, None], mvps[torch.clamp(draw, 0, D - 1)],
                     torch.zeros_like(mvps[:1]))                # [T, 16]
     x, y, z = corners[..., 0], corners[..., 1], corners[..., 2]   # [T, 3]
@@ -79,21 +92,26 @@ def fused_setup_reference(corners, tri_draw, tri_tex, tri_valid, mvps,
 
 def fused_setup(corners, tri_draw, tri_tex, tri_valid, mvps, cam_valid,
                 viewport, scissor, *, tile_w, tile_h, grid_w, grid_h,
-                cull_mode=None, front_face=None):
+                cull_mode=None, front_face=None, draw_mod=None):
     """corners f32 [T, 3, 5], tri_draw/tri_tex i32 [T], tri_valid bool [T],
     mvps f32 [D, 16] (row-major view_proj @ model), cam_valid bool (host);
-    viewport 6 floats and scissor 4 ints on the host.
+    viewport 6 floats and scissor 4 ints on the host; ``draw_mod`` = (n, i)
+    keeps only the rows whose draw % n == i (a device's round-robin share of
+    the draws on a mesh), None keeps every row.  Row ``t`` keeps order
+    ``t`` either way.
 
     Returns (TriangleSetup, crossings i32 [], crossed bool [T])."""
     if corners.device.type == "cpu":
         return fused_setup_reference(
             corners, tri_draw, tri_tex, tri_valid, mvps, cam_valid, viewport,
             scissor, tile_w=tile_w, tile_h=tile_h, grid_w=grid_w,
-            grid_h=grid_h, cull_mode=cull_mode, front_face=front_face)
+            grid_h=grid_h, cull_mode=cull_mode, front_face=front_face,
+            draw_mod=draw_mod)
     if corners.device.type != "cuda":
         raise ValueError(f"fused_setup: unsupported device {corners.device}")
     if tile_w & (tile_w - 1) or tile_h & (tile_h - 1):
         raise ValueError("fused_setup needs power-of-two tiles")
+    mod_n, mod_i = _draw_mod(draw_mod)
     T = corners.shape[0]
     D = mvps.shape[0]
     for name, t, dt, shape in (
@@ -127,6 +145,7 @@ def fused_setup(corners, tri_draw, tri_tex, tri_valid, mvps, cam_valid,
     err = lib.ty_fused_setup(
         corners.data_ptr(), tri_draw.data_ptr(), tri_tex.data_ptr(),
         tri_valid.data_ptr(), mvps.data_ptr(), T, D, int(bool(cam_valid)),
+        mod_n, mod_i,
         *S.viewport_floats(viewport), *S.scissor_ints(scissor),
         tile_w.bit_length() - 1, tile_h.bit_length() - 1, grid_w, grid_h,
         cull, ccw,

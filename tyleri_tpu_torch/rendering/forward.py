@@ -20,8 +20,9 @@ triangles, as the JAX package does wherever its kernel runs;
 ``blend_parity="exact"`` (or ``exact=True``) is exact mode.  The device's
 sampler anisotropy sets the shade's taps.
 
-Not ported yet: multi-device rendering (the window raises
-NotImplementedError for a device mesh).
+``record_sharded`` records one rank's band of a frame on a (draws, tiles)
+device mesh (``tyleri_tpu_torch.parallel``): ``frame_body`` takes the band's
+first row and the rank's draw mask.
 """
 
 from __future__ import annotations
@@ -113,12 +114,29 @@ def world_normals(corner_nrm, tri_draw, models):
         + corner_nrm[..., 2] * m[..., 2, j] for j in range(3)], dim=-1)
 
 
+def _shift_viewport(viewport, y0: int) -> np.ndarray:
+    """A host viewport [6] moved up by y0 pixels: band-local coordinates."""
+    vp = np.array(viewport, np.float32)
+    vp[1] -= np.float32(y0)
+    return vp
+
+
+def _shift_scissor(scissor, y0: int, band_h: int) -> np.ndarray:
+    """A host scissor [4] intersected with the band [y0, y0 + band_h), in
+    band-local coordinates."""
+    x, y, w, h = (int(v) for v in scissor)
+    sy0 = min(max(y - y0, 0), band_h)
+    sy1 = min(max(y + h - y0, 0), band_h)
+    return np.array([x, sy0, w, sy1 - sy0], np.int32)
+
+
 def frame_body(plan: FramePlan, mesh_state, texels, tex_offset, tex_width,
                tex_height, clear_color, cam_valid, viewports, scissors, mvps,
                corners, tri_draw, tri_valid0, tri_tex, corner_nrm=None,
                models=None, lights=None, inv_vps=None, eyes=None, ui=None,
-               ui_state=None) -> Frame:
-    """One frame: clear -> the UI overlay -> one mesh pass per live camera.
+               ui_state=None, *, band_y0: int = 0, draw_mod=None) -> Frame:
+    """One frame, or one band of a frame: clear -> the UI overlay -> one
+    mesh pass per live camera.
 
     cam_valid bool [C], viewports f32 [C, 6] and scissors i32 [C, 4] are
     host arrays; mvps f32 [C, D, 16] and the cached triangle tables
@@ -129,7 +147,13 @@ def frame_body(plan: FramePlan, mesh_state, texels, tex_offset, tex_width,
     on the host.  With ``plan.has_ui``, ``ui`` = (clip [U, 3, 4], uv
     [U, 3, 2], colors [U, 3, 4], tex i32 [U], valid bool [U]) on the
     device and the window's viewport and scissor on the host, drawn with
-    ``ui_state``."""
+    ``ui_state``.
+
+    On a device mesh (``parallel/sharding.py``) ``plan.raster.fb_h`` is the
+    band's height and ``band_y0`` its first row: every viewport and scissor
+    moves into band-local coordinates, the scissors clipped to the band.
+    ``draw_mod`` = (n, i) draws only the triangles whose draw % n == i; the
+    order map keeps each triangle's global order either way."""
     dev = corners.device
     H, W = plan.raster.fb_h, plan.raster.fb_w
     color = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
@@ -143,7 +167,9 @@ def frame_body(plan: FramePlan, mesh_state, texels, tex_offset, tex_width,
         # z = 0 occludes the mesh fragments behind it
         ui_clip, ui_uv, ui_color, ui_tex, ui_valid, wvp, wsc = ui
         color, depth = ui_pass(ui_state, color, depth, ui_clip, ui_uv,
-                               ui_color, ui_tex, ui_valid, wvp, wsc, texels,
+                               ui_color, ui_tex, ui_valid,
+                               _shift_viewport(wvp, band_y0),
+                               _shift_scissor(wsc, band_y0, H), texels,
                                tex_offset, tex_width, tex_height)
         order = torch.where(depth < CLEAR_DEPTH, 0.0, order)
     # camera-pass order stride: pass orders are table rows in
@@ -155,10 +181,16 @@ def frame_body(plan: FramePlan, mesh_state, texels, tex_offset, tex_width,
     for c in range(plan.cam_cap):
         if not cam_valid[c]:
             continue
+        viewport = _shift_viewport(viewports[c], band_y0)
+        scissor = _shift_scissor(scissors[c], band_y0, H)
         if plan.lit or plan.raster.exact:
             # exact mode draws from clip space, unlit (passes.py:241,271)
             clip, uv = transform_corner_table(corners[c], tri_draw[c],
                                               mvps[c])
+            tri_valid = tri_valid0[c]
+            if draw_mod is not None:
+                tri_valid = tri_valid & (tri_draw[c] % draw_mod[0]
+                                         == draw_mod[1])
             lit = {}
             if plan.lit:
                 lit = dict(
@@ -167,14 +199,14 @@ def frame_body(plan: FramePlan, mesh_state, texels, tex_offset, tex_width,
                     lit_params=(lights[c], inv_vps[c], eyes[c]))
             color, depth, st, pass_order = mesh_pass(
                 plan.raster, mesh_state, color, depth, clip, uv, tri_tex[c],
-                tri_valid0[c], viewports[c], scissors[c], texels, tex_offset,
-                tex_width, tex_height, **lit)
+                tri_valid, viewport, scissor, texels, tex_offset, tex_width,
+                tex_height, **lit)
         else:
             color, depth, st, pass_order = mesh_pass_fused(
                 plan.raster, mesh_state, color, depth, corners[c],
                 tri_draw[c], tri_tex[c], tri_valid0[c], mvps[c], True,
-                viewports[c], scissors[c], texels, tex_offset, tex_width,
-                tex_height)
+                viewport, scissor, texels, tex_offset, tex_width, tex_height,
+                draw_mod=draw_mod)
         if pass_order is not None:   # exact mode keeps no order map
             order = torch.where(pass_order >= 0.0,
                                 c * span + pass_order + 1.0, order)
@@ -243,6 +275,12 @@ class ForwardRenderingFunction:
         self._spill_demand = None  # np [L] elementwise max
         self._spill_fit = ()
         self._tri_table_cache = None
+        # a mesh with a draws axis, and the tiles-only mesh over its ranks
+        # that peel2 renders on (record_sharded); the mesh of the last frame
+        # record_sharded recorded, whose tiles axis holds its bands
+        self._tiles_only = None
+        self._peel2_remap_noted = False
+        self.frame_mesh = None
 
     def resize(self, resolution) -> None:
         """Re-target to a new framebuffer size; learned capacities stay."""
@@ -445,6 +483,54 @@ class ForwardRenderingFunction:
                                          scale_factor, window_size)
         return frame_body(self.plan, self.mesh_state, *inputs,
                           ui_state=self.ui_state)
+
+    def record_sharded(self, render_device, render_resources, scale_factor,
+                       window_size, device_mesh) -> Frame:
+        """Record this rank's band of one frame on a (draws, tiles) device
+        mesh (``tyleri_tpu_torch.parallel``); every rank of the mesh calls
+        it with the same scene.  The draws go to the ``draws`` axis as the
+        reference's ParallelGroup spreads them over threads
+        (Camera::get_and_order_meshes, ref camera.rs:32-39)."""
+        from tyleri_tpu_torch.parallel.mesh import AXIS_DRAWS, AXIS_TILES
+        from tyleri_tpu_torch.parallel.sharding import (
+            derive_draw_groups,
+            render_frame_sharded,
+        )
+
+        # the plan grows first, so the first frame already sees peel2
+        inputs = self.build_frame_inputs(render_device, render_resources,
+                                         scale_factor, window_size)
+        if device_mesh.shape[0] > 1 and self.plan.raster.peel2:
+            # peel2's layer 2 is per-pixel sequential state: the depth
+            # record's holder just before the winner drew.  Bands keep each
+            # pixel's whole survivor chain on one rank; a share of the draws
+            # cannot (a rank whose winner and layer 2 both come after the
+            # global winner hides the true second survivor).  So one
+            # semantics: the same ranks as one row of tile bands.  Making
+            # its sub-groups is collective: every rank does it here, once.
+            if self._tiles_only is None or self._tiles_only[0] is not \
+                    device_mesh:
+                from torch.distributed.device_mesh import DeviceMesh
+
+                self._tiles_only = (device_mesh, DeviceMesh(
+                    device_mesh.device_type, device_mesh.mesh.reshape(1, -1),
+                    mesh_dim_names=(AXIS_DRAWS, AXIS_TILES)))
+            device_mesh = self._tiles_only[1]
+            if not self._peel2_remap_noted:
+                self._peel2_remap_noted = True
+                render_device.debug_messenger.emit(
+                    debug.Severity.INFO,
+                    "peel2-mesh-tiles-only",
+                    "peel2 with a draws mesh axis: re-mapped the device mesh "
+                    "to tiles-only to preserve global layer-2 semantics "
+                    "(draw sharding would make layer 2 shard-local; pixel "
+                    "bands keep every survivor chain on one device)",
+                    debug.MessageType.PERFORMANCE,
+                )
+        derive_draw_groups(render_resources.cameras, device_mesh.shape[0])
+        self.frame_mesh = device_mesh
+        return render_frame_sharded(self.plan, self.mesh_state,
+                                    self.ui_state, device_mesh, *inputs)
 
     def build_frame_inputs(self, render_device, render_resources,
                            scale_factor, window_size):

@@ -166,16 +166,19 @@ def _fused_clip_subset(su, crossed, clip_tables, mvps, viewport, scissor,
 def mesh_pass_fused(plan: RasterPlan, state: PipelineState, color, depth,
                     corners, tri_draw, tri_tex, tri_valid, mvps, cam_valid,
                     viewport, scissor, texels, tex_offset, tex_width,
-                    tex_height):
+                    tex_height, draw_mod=None):
     """One camera's mesh pass.  corners f32 [T, 3, 5] (cached table),
     tri_draw/tri_tex i32 [T], tri_valid bool [T], mvps f32 [D, 16];
-    viewport/scissor on the host.  Returns (color, depth, PassStats,
-    order_map)."""
+    viewport/scissor on the host; ``draw_mod`` = (n, i) draws only the
+    triangles whose draw % n == i (a mesh device's share).  Returns (color,
+    depth, PassStats, order_map)."""
     dims = setup_dims(plan)
+    # the kernel masks before it flags crossers, so the re-clip below sees
+    # only this device's crossers and needs no mask of its own
     su, crossings, crossed = fused_setup(
         corners, tri_draw, tri_tex, tri_valid, mvps, cam_valid, viewport,
         scissor, cull_mode=state.raster.cull_mode,
-        front_face=state.raster.front_face, **dims)
+        front_face=state.raster.front_face, draw_mod=draw_mod, **dims)
     if not plan.near_clip:
         # cull mode: crossers were dropped and counted (crossings), which
         # re-enables clipping for the next frame

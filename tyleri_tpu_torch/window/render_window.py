@@ -16,6 +16,11 @@
   fence wait on frame N-k               CUDA event of that slot's frame
   reset CBs / clear render resources    scene.clear(), stats -> validation
 
+On a device mesh (``device_mesh=make_render_mesh(n)``, one window a rank)
+``record`` becomes ``record_sharded``: each rank renders its band, and the
+quantized bands are gathered over the mesh's ``tiles`` axis, so every rank
+presents the whole image.
+
 Frames in flight = swapchain image count: the host records frame N while
 the card renders N-1..N-k.  A recycled frame's stats (overflow and demand
 counters) are already on the host when its fence has passed, so reading
@@ -63,6 +68,31 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _check_mesh(device_mesh, render_device) -> None:
+    """A window renders on a (draws, tiles) DeviceMesh
+    (``parallel.mesh.make_render_mesh``) whose device is the rank's render
+    device."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from tyleri_tpu_torch.parallel.mesh import AXIS_DRAWS, AXIS_TILES
+
+    if (not isinstance(device_mesh, DeviceMesh)
+            or device_mesh.mesh_dim_names != (AXIS_DRAWS, AXIS_TILES)):
+        raise TypeError(f"device_mesh must be a DeviceMesh with dims "
+                        f"({AXIS_DRAWS!r}, {AXIS_TILES!r}) (make_render_mesh),"
+                        f" got {device_mesh!r}")
+    dev = render_device.device
+    if device_mesh.device_type != dev.type or (
+            dev.type == "cuda"
+            and dev.index != dist.get_rank() % torch.cuda.device_count()):
+        raise ValueError(
+            f"rank {dist.get_rank()} of a {device_mesh.device_type} mesh "
+            f"renders on its own device, not {dev} (build the device with "
+            f".device_id(rank % torch.cuda.device_count()), or with "
+            f".device('cpu') for a cpu mesh)")
+
+
 class _InFlight:
     """One swapchain slot's frame (ref: render_window.rs:29-43)."""
 
@@ -100,8 +130,8 @@ class RenderWindow:
         composite_alpha: str = "opaque",
     ):
         if device_mesh is not None:
-            raise NotImplementedError(
-                "multi-device rendering (device_mesh) is not ported yet")
+            _check_mesh(device_mesh, render_device)
+        self.device_mesh = device_mesh
         if composite_alpha not in ("opaque", "inherit"):
             raise ValueError(f"unsupported composite_alpha {composite_alpha!r}")
         self.render_device = render_device
@@ -174,12 +204,26 @@ class RenderWindow:
         queue = device.present_queues.pop()
         try:
             with queue.context():
-                frame = rf.record(device, scene.render_resources,
-                                  self._scale_factor,
-                                  self.swapchain.resolution)
+                if self.device_mesh is None:
+                    frame = rf.record(device, scene.render_resources,
+                                      self._scale_factor,
+                                      self.swapchain.resolution)
+                else:
+                    frame = rf.record_sharded(
+                        device, scene.render_resources, self._scale_factor,
+                        self.swapchain.resolution, self.device_mesh)
                 plan = rf.plan
-                image = _to_host(quantize_unorm8(
-                    frame.color, opaque=self.composite_alpha == "opaque"))
+                image = quantize_unorm8(
+                    frame.color, opaque=self.composite_alpha == "opaque")
+                if self.device_mesh is not None:
+                    # every rank presents the whole image
+                    from tyleri_tpu_torch.parallel.sharding import (
+                        gather_rows,
+                    )
+
+                    image = gather_rows(image, rf.frame_mesh,
+                                        self.swapchain.resolution[1])
+                image = _to_host(image)
                 stats = _to_host(frame.stats_vector())
             fence = queue.fence()
         finally:
