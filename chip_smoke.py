@@ -96,10 +96,11 @@ kernel's bound is the largest of its bytes (each input read once, each
 output written once, what this run's data needs) over 3.35 TB/s, its f32
 operations on the CUDA cores, each one instruction (the kernels build with
 -fmad=false), over 33.5 T/s, half the 67 TFLOP/s that counts an FMA as
-two, and its tensor-core flops over 989 TFLOP/s (bf16) or a third of 495
-(TF32, three passes for f32 accuracy) (NVIDIA H100 SXM); the kernels line
-says "operations" for either kind of operation, and its bound_kind says
-which of the three ("bytes", "operations" or "tensor") the bound is.
+two, and its tensor-core flops over 989 TFLOP/s (bf16) or 495 (TF32: f32
+accuracy as 3xTF32, packed into 8 products a plane) (NVIDIA H100 SXM); the
+kernels line says "operations" for either kind of operation, and its
+bound_kind says which of the three ("bytes", "operations" or "tensor") the
+bound is.
 Every kernel's time in the record is by CUDA events around a CUDA graph of
 20 calls (``graph_ms``), so a wrapper's host cost drops out; K1-K3 are also
 timed back to back (``back_to_back_ms``).  Each phase prints its time.  The

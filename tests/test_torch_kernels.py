@@ -633,6 +633,50 @@ def test_probe_mxu_close_on_the_tools_inputs(cuda_device, name):
     assert share <= M.MAX_DIFFERING
 
 
+# one variant of each layout, stage and attribute kind
+MXU_KINDS = ["fat4_hst", "fat4_def", "fatsplit", "fat7_hst", "ew", "red",
+             "full", "fatfullc", "fatsplitred", "fatsplitfullc",
+             "fatsplit_exit"]
+
+
+@pytest.mark.parametrize("tile_h,chunk", [(8, 128), (32, 128), (16, 64),
+                                          (16, 256), (16, 72)])
+@pytest.mark.parametrize("name", MXU_KINDS)
+def test_probe_mxu_tiles_and_chunks_on_exact_inputs(cuda_device, name,
+                                                    tile_h, chunk):
+    """Other tile heights (m-tiles a warpgroup) and chunks (products a
+    chunk; 72 ends on half a product): equal to the plain version on the
+    exact table where the block's shared memory fits, else the wrapper
+    raises before launching (fatfullc, fatsplitfullc and fatsplit_exit
+    at tile_h 32, the last two at chunk 256: 14 maps a pixel, and the
+    split's 60-lane ring, pass 227 KB)."""
+    from tyleri_tpu_torch import _build
+    from tyleri_tpu_torch.tools import exp_mxu as M
+
+    opts = M.options(name, tile_h)
+    grid = 40
+    ent, ts = M.exact_inputs(cuda_device, grid=grid, seg=240, chunk=chunk,
+                             split=opts["split"])
+    kw = dict(grid=grid, grid_w=M.grid_dims(tile_h)[0], chunk=chunk, **opts)
+    mode = 2 if opts["split"] else (0 if opts["precision"] == "highest"
+                                    else 1)
+    stage = M._stage(opts["do_ew"], opts["do_red"])
+    attr = (1 if opts["do_attr"] else 2 if opts["do_attrc"] else 0
+            ) if stage == 2 else 0
+    M.reset_launches()
+    if not _build.load().ty_probe_mxu_smem(mode, opts["nplanes"], chunk,
+                                           tile_h, stage, attr):
+        with pytest.raises(ValueError, match="shared memory"):
+            M.run_mxu(ent, ts, **kw)
+        assert M.launches["mxu"] == 0
+        return
+    got = M.run_mxu(ent, ts, **kw)
+    want = M.mxu_reference(ent, ts, **kw)
+    torch.cuda.synchronize()
+    assert M.launches["mxu"] == 1
+    assert torch.equal(got, want)
+
+
 def test_probe_mosaic_bit_equal(cuda_device):
     from tyleri_tpu_torch.tools import exp_mosaic_probe as P5
 

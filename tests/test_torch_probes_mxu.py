@@ -120,3 +120,114 @@ def test_mxu_compare_reports_a_plane_offset(name, lanes, delta):
                          M.mxu_reference(ent, ts, **kw), ent, opts,
                          -(-SEG // CHUNK))
     assert share > M.MAX_DIFFERING, share
+
+
+# ---- the kernel's packed formulation (csrc/probes_mxu.cu), on the CPU ----
+
+def cvt_rna_tf32(x):
+    """``cvt.rna.tf32.f32``: 10 mantissa bits, to nearest, ties away from
+    zero (the magnitude's bits plus half of the dropped 13, truncated)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x):
+    big = cvt_rna_tf32(x)
+    return big, cvt_rna_tf32(x - big)
+
+
+def packed_operands(rows, gx, gy, tile_h, nplanes, mode):
+    """The kernel's operands for one tile: A [PX, k] (a pixel's row) and B
+    [C, nplanes, k] (the column of each entry and plane), one k-block a
+    plane holding only that plane's rows: "highest" k8 of 3xTF32
+    (xb, yb, 1, xs, ys, xb, yb, 1) against (ab, bb, cb, ab, bb, as, bs, cs);
+    "default" bf16 (x, y, 1, 0...) against (a, b, c, 0...) in k16; split
+    the 15 split-coordinate rows and a zero row against lanes
+    15p..15p+14 and a zero lane."""
+    PX = M.TILE_W * tile_h
+    xf, yf = (v[0] for v in M._coords(gx, gy, tile_h, PX, "cpu"))
+    one, zero = torch.ones(PX), torch.zeros(PX)
+    if mode == "highest":
+        (xb, xs), (yb, ys) = split_tf32(xf), split_tf32(yf)
+        a = torch.stack([xb, yb, one, xs, ys, xb, yb, one], -1)
+        cols = []
+        for p in range(nplanes):
+            (ab, as_), (bb, bs), (cb, cs) = (split_tf32(rows[:, 3 * p + i])
+                                             for i in range(3))
+            cols.append(torch.stack([ab, bb, cb, ab, bb, as_, bs, cs], -1))
+        return a, torch.stack(cols, 1)
+    if mode == "default":
+        a = torch.stack([M._bf16(xf), M._bf16(yf), one] + [zero] * 13, -1)
+        b = torch.zeros((rows.shape[0], nplanes, 16))
+        for p in range(nplanes):
+            b[:, p, :3] = M._bf16(rows[:, 3 * p:3 * p + 3])
+        return a, b
+
+    def hi(v):
+        return (v * 0.0625).to(torch.bfloat16).to(torch.float32) * 16.0
+
+    xhi, yhi = hi(xf), hi(yf)
+    xlo, ylo = xf - xhi, yf - yhi
+    a = torch.stack([xhi, xlo] * 3 + [yhi, ylo] * 3 + [one] * 3 + [zero], -1)
+    b = torch.zeros((rows.shape[0], nplanes, 16))
+    for p in range(nplanes):
+        b[:, p, :15] = M._bf16(rows[:, 15 * p:15 * p + 15])
+    return a, b
+
+
+def reference_planes(rows, gx, gy, tile_h, nplanes, split, bf16):
+    """The planes [C, nplanes, PX] as ``mxu_reference`` computes them: the
+    chunk's lanes against ``_rhs``, both rounded to bf16 where it rounds
+    them."""
+    lhs = rows[:, :64 if split else M.K]
+    rhs = M._rhs(gx, gy, tile_h, nplanes, split)[0]
+    if bf16:
+        lhs, rhs = M._bf16(lhs), M._bf16(rhs)
+    return (lhs @ rhs).reshape(rows.shape[0], nplanes, -1)
+
+
+# split has 15 rows a plane in the table's 64 lanes: 4 planes only
+@pytest.mark.parametrize("mode,nplanes", [
+    ("highest", 4), ("highest", 7), ("default", 4), ("default", 7),
+    ("split", 4)])
+@pytest.mark.parametrize("table", ["exact", "tool"])
+def test_packed_products_give_the_reference_planes(mode, nplanes, table):
+    """A * B^T a plane equals the planes the plain version computes bit for
+    bit on the exact table (every product and partial sum exact), and is
+    within ``compare``'s plane tolerance (2^-18 of the plane's magnitude)
+    on the tool's table, where "highest" drops small * small and each sum
+    rounds in its own order; for two tiles, the far corner's included."""
+    split = mode == "split"
+    tile_h = 16
+    if table == "exact":
+        ent, _ = M.exact_inputs("cpu", grid=2, seg=SEG, chunk=CHUNK,
+                                split=split)
+    else:
+        ent, _, _ = M.tool_inputs("cpu", grid=2, seg=SEG, chunk=CHUNK,
+                                  tile_h=tile_h)
+    rows = ent[:CHUNK]
+    grid_w, grid_h = M.grid_dims(tile_h)
+    n = 15 if split else 3
+    tol = torch.tensor([M.REL_TOL * M._plane_mag(ent, p * n, n)
+                        for p in range(nplanes)])[None, :, None]
+    for t in (0, grid_w * grid_h - 1):
+        gx, gy = torch.tensor([t % grid_w]), torch.tensor([t // grid_w])
+        a, b = packed_operands(rows, gx, gy, tile_h, nplanes, mode)
+        got = torch.einsum("xk,cpk->cpx", a, b)
+        want = reference_planes(rows, gx, gy, tile_h, nplanes, split,
+                                mode != "highest")
+        if table == "exact":
+            assert torch.equal(got, want)
+        else:
+            assert ((got - want).abs() <= tol).all(), (
+                float(((got - want).abs() / tol).max()))
+
+
+def test_cvt_rna_tf32_rounds_ties_away_from_zero():
+    """1 + 2^-11 is halfway between two TF32 values: away from zero, in
+    either sign; just below half rounds down."""
+    x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12,
+                      3.0, 1919.5], dtype=torch.float32)
+    got = cvt_rna_tf32(x)
+    assert got.tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0, 3.0,
+                            1920.0]

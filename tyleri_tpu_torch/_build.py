@@ -199,7 +199,7 @@ def _bind(lib) -> None:
         p,                        # stream
     ]
     lib.ty_probe_mxu_smem.restype = ctypes.c_longlong
-    lib.ty_probe_mxu_smem.argtypes = [i, i, i, i, i]
+    lib.ty_probe_mxu_smem.argtypes = [i, i, i, i, i, i]
     lib.ty_probe_mxu.restype = i
     lib.ty_probe_mxu.argtypes = [
         p, p, i, i, i,            # tile_start, entries, cap, stride, chunk

@@ -14,7 +14,9 @@ The TPU probe's lane pad of the table ([E, 24] -> [E, 128], ``do_pad``,
 
 ``probe_launch``: a kernel fills a (grid_h * tile_h) x (grid_w * tile_w)
 grid with 1.0, one block per tile, and the caller adds a scalar, as the TPU
-probe's jit does: per-launch against per-block against per-pixel cost.
+probe's jit does: per-launch against per-block against per-pixel cost.  The
+tool times ``torch.ones`` of the same shape beside the fill kernel, in turns
+(library, fill, fill, library), as the library call that computes it.
 
 Kernels: ``csrc/probes.cu`` ``fixed_cost_kernel`` and ``fill_kernel``,
 bit-equal to ``fixed_cost_reference`` and ``fill_reference``.
@@ -200,10 +202,22 @@ def run_variants(device: torch.device, reps: int, card=None) -> list[dict]:
     x = torch.zeros((), device=device)
     for name, shape in LAUNCH_VARIANTS.items():
         f = probe_launch_fn(*shape)
-        t = _common.timing(lambda: fill(*shape, device), device, reps)
+
+        def kernel():
+            fill(*shape, device)
+
+        def library():
+            grid_h, grid_w, tile_h, tile_w = shape
+            torch.ones((grid_h * tile_h, grid_w * tile_w), device=device)
+
+        t = [_common.timing(g, device, reps)
+             for g in (library, kernel, kernel, library)]
+        key = next(iter(t[0]))
         probe = _common.timing(lambda: f(x), device, reps)
         out.append(_common.emit(
-            "exp_fixedcost", name, device, card, **t,
+            "exp_fixedcost", name, device, card,
+            **{key: (t[1][key] + t[2][key]) / 2,
+               f"library_{key}": (t[0][key] + t[3][key]) / 2},
             **{f"probe_{k}": v for k, v in probe.items()},
             **fill_bound(*shape)))
     return out

@@ -14,16 +14,17 @@ planes evaluated per pixel at the end (``do_attrc``); and ``exit_cross``,
 the production exit's structure on a gate that does not fire.  The output
 is [grid, 8, PX]: depth, order, owner, four attributes, acc.
 
-Precision: "highest" is an f32 product (the kernel: 3xTF32); "default"
-rounds both operands to bf16 (nearest even) and sums in f32, as the TPU's
-single bf16 pass does (the kernel: bf16 mma.sync).  ``fat`` (the planes in
-one product or one product each) is the same work on the card.
+Precision: "highest" is an f32 product (the kernel: 3xTF32 packed into one
+TF32 k8 product a plane); "default" rounds both operands to bf16 (nearest
+even) and sums in f32, as the TPU's single bf16 pass does (the kernel: one
+bf16 k16 product a plane, on ``wgmma``).  ``fat`` (the planes in one
+product or one product each) is the same work on the card.
 
 ``prodlike`` runs the port's P3 variant kernel with the lex compare on the
 table's first 24 lanes (``tools/exp_visibility.py``'s ``run_variant``).
 
-Kernel: ``csrc/probes_mxu.cu`` ``mxu_kernel<MODE, NPLANES>``; plain
-version ``mxu_reference``, which batches the tiles.
+Kernel: ``csrc/probes_mxu.cu`` ``mxu_kernel<MODE, NPLANES, STAGE, ATTR>``;
+plain version ``mxu_reference``, which batches the tiles.
 
     python3 -m tyleri_tpu_torch.tools.exp_mxu [--device cpu] [--seg 256]
         [--chunk 128] [--tile-h 16] [--grid N] [variant ...]
@@ -257,7 +258,8 @@ def run_mxu(entries, tile_start, *, grid, grid_w, chunk, precision,
             (8, 16, 32)):
         raise ValueError(f"mxu: no kernel for {kw}")
     lib = _build.load()
-    if not lib.ty_probe_mxu_smem(mode, chunk, tile_h, stage, attr):
+    if not lib.ty_probe_mxu_smem(mode, nplanes, chunk, tile_h, stage,
+                                 attr):
         raise ValueError(f"mxu: chunk {chunk} at tile_h {tile_h} needs more "
                          "shared memory than a block has")
     out = torch.empty((grid, OUT_ROWS, TILE_W * tile_h), device=dev)
@@ -273,10 +275,13 @@ def run_mxu(entries, tile_start, *, grid, grid_w, chunk, precision,
 
 def mxu_bound(tile_start, opts, *, grid, chunk) -> dict:
     """The lanes of every chunk read and the output written once; the
-    products' flops over the rows of each plane's RHS that are not zero (3
-    of 32, split 15 of 64) at the tensor cores' rate; the CUDA-core
-    operations per (entry, pixel) pair.  ``tc_flops_formulated`` counts the
-    product as the probe formulates it, zero rows included."""
+    products' flops at the tensor cores' rate: "highest" (3xTF32) 8 TF32
+    products a plane and pair, the packed k8 block that sums big * big,
+    small * big and big * small at 495 TFLOP/s; bf16 ("default", split) the
+    rows of each plane's RHS that are not zero (3, split 15) at 989; and the
+    CUDA-core operations per (entry, pixel) pair.  ``tc_flops_formulated``
+    counts the kernel's products: one k-block a plane, 8 TF32 rows or 16
+    bf16 rows, zero rows included."""
     ts = tile_start[:grid + 1].long()
     nch = torch.where(ts[1:] > ts[:-1], -(-(ts[1:] - ts[:-1]) // chunk), 0)
     chunks = int(nch.sum())
@@ -291,9 +296,10 @@ def mxu_bound(tile_start, opts, *, grid, chunk) -> dict:
     products = 2.0 * pairs * opts["nplanes"]
     return dict(_common.bound(
         4 * (chunks * chunk * kf + grid * OUT_ROWS * PX + grid + 1),
-        ops * pairs, products * rows_per,
-        _common.TC_TF32_FLOPS / 3 if highest else _common.TC_BF16_FLOPS),
-        tc_flops_formulated=int(products * kf), chunks=chunks)
+        ops * pairs, products * (8 if highest else rows_per),
+        _common.TC_TF32_FLOPS if highest else _common.TC_BF16_FLOPS),
+        tc_flops_formulated=int(products * (8 if highest else 16)),
+        chunks=chunks)
 
 
 VARIANTS = {
