@@ -1763,10 +1763,11 @@ def phase_probes(device, card, records, launches, sponza_gather, reps=20,
                                (table, ts_seg, 7)))
     plain_ms["fixed_cost"] = cuda_ms(lambda: exp_fixedcost.fixed_cost_reference(
         table, ts_empty, depth0, n_out=7), 5)
+    # the tool's shapes, and one whose rows take the scalar ends
     err["fill"] = max(
         check_bit_equal("fill", [exp_fixedcost.fill(*shape, device)],
                         [exp_fixedcost.fill_reference(*shape, device)])
-        for shape in exp_fixedcost.LAUNCH_VARIANTS.values())
+        for shape in (*exp_fixedcost.LAUNCH_VARIANTS.values(), (3, 5, 7, 13)))
     shape = exp_fixedcost.LAUNCH_VARIANTS["launch_68x15_16x128"]
     plain_ms["fill"] = cuda_ms(
         lambda: exp_fixedcost.fill_reference(*shape, device), 20)

@@ -499,6 +499,28 @@ def test_fixed_cost_bit_equal(cuda_device, case, n_out):
                            exp_fixedcost.fill_reference(*shape, cuda_device))
 
 
+@pytest.mark.parametrize("shape", [
+    (3, 5, 7, 13),     # tile_w % 4 == 1: rows start at every alignment
+    (2, 7, 3, 6),      # tile_w % 4 == 2
+    (4, 3, 40, 1),     # one column a tile: scalar stores alone
+    (1, 2, 9, 130),    # a wide tile: two float4 passes a row, and a tail
+    (5, 4, 2, 8),      # aligned, narrower than a warp's columns
+])
+def test_fill_bit_equal_at_odd_shapes(cuda_device, shape):
+    from tyleri_tpu_torch.tools import exp_fixedcost
+
+    grid_h, grid_w, tile_h, tile_w = shape
+    # NaN in the block the allocator hands the fill next: a pixel the
+    # kernel misses stays NaN
+    torch.full((grid_h * tile_h, grid_w * tile_w), float("nan"),
+               device=cuda_device)
+    exp_fixedcost.reset_launches()
+    got = exp_fixedcost.fill(*shape, cuda_device)
+    torch.cuda.synchronize()
+    assert exp_fixedcost.launches["fill"] == 1
+    assert torch.equal(got, exp_fixedcost.fill_reference(*shape, cuda_device))
+
+
 @pytest.mark.parametrize("level,nout,kind,tpp", [
     (0, 7, "zero", 1), (1, 7, "zero", 4), (2, 7, "zero", 1),
     (2, 7, "one", 1), (2, 3, "many", 4), (2, 1, "many", 1)])
@@ -522,11 +544,12 @@ def test_pipe_cost_bit_equal(cuda_device, level, nout, kind, tpp):
 
 # ---- P3, P2, P5 (csrc/probes_visibility.cu, probes_mxu.cu, probes.cu) ----
 
-def p3_inputs(device, tile_h, seed=5):
-    """The CPU tests' snapped random table and segments."""
+def p3_inputs(device, tile_h, seed=5, skew=False):
+    """The CPU tests' snapped random table and segments (``skew``: two
+    tiles hold most entries)."""
     from torch_probe_tables import FB_H, FB_W, inputs
 
-    tab, ts, depth0, _, _ = inputs(seed, tile_h)
+    tab, ts, depth0, _, _ = inputs(seed, tile_h, skew=skew)
     t = [torch.from_numpy(a).to(device) for a in (tab, ts, depth0)]
     return (*t, (0, 0, FB_W, FB_H))
 
@@ -541,6 +564,13 @@ P3_CASES = {
     "th8": dict(tile_h=8), "th32": dict(tile_h=32),
     "th64c256": dict(tile_h=64, chunk=256), "unroll8": dict(unroll=8),
     "th32u2": dict(tile_h=32, chunk=256, unroll=2),
+    # two tiles hold most entries, so the tile order reorders the launch
+    "skew": dict(skew=True), "skew_exit": dict(skew=True, exit=True),
+    "skew_exit2": dict(skew=True, exit=True, lag2=True),
+    "skew_th8": dict(skew=True, tile_h=8),
+    "skew_th32hoist": dict(skew=True, tile_h=32, chunk=256,
+                           hoist_loads=True),
+    "skew_th64c256": dict(skew=True, tile_h=64, chunk=256),
 }
 
 
@@ -550,7 +580,8 @@ def test_probe_visibility_variant_bit_equal(cuda_device, case):
 
     kw = dict(P3_CASES[case])
     tile_h = kw.get("tile_h", 16)
-    table, ts, depth0, scissor = p3_inputs(cuda_device, tile_h)
+    table, ts, depth0, scissor = p3_inputs(cuda_device, tile_h,
+                                           skew=kw.pop("skew", False))
     if kw.get("e2_stored"):
         table = V.refill_e2(table)
     V.reset_launches()
@@ -575,6 +606,25 @@ def test_probe_visibility_packed_bit_equal(cuda_device, exit, lag2):
     from tyleri_tpu_torch.tools import exp_visibility as V
 
     table, ts, depth0, scissor = p3_inputs(cuda_device, 16, seed=11)
+    packed = V.pack5(table)
+    got, nres = V.run_packed(packed, ts, depth0, scissor, exit=exit,
+                             lag2=lag2)
+    grid_w, grid_h = V.grid_of(depth0.shape[1], depth0.shape[0], 16)
+    want, want_nres = V.packed_reference(packed, ts, depth0, scissor,
+                                         tile_h=16, grid_w=grid_w,
+                                         grid_h=grid_h, exit=exit, lag2=lag2)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert torch.equal(nres, want_nres)
+
+
+@pytest.mark.parametrize("exit,lag2", [(True, False), (True, True)])
+def test_probe_visibility_packed_on_skewed_segments(cuda_device, exit, lag2):
+    from tyleri_tpu_torch.tools import exp_visibility as V
+
+    table, ts, depth0, scissor = p3_inputs(cuda_device, 16, seed=13,
+                                           skew=True)
     packed = V.pack5(table)
     got, nres = V.run_packed(packed, ts, depth0, scissor, exit=exit,
                              lag2=lag2)

@@ -165,3 +165,18 @@ def test_ptxas_report_names_each_instance():
     assert _build.demangle(list(found)) == [
         "variant_kernel<32, 4, false, 0, false, false, false, false>",
         "fused_setup_kernel"]
+
+
+def test_library_key_covers_the_shared_header(tmp_path, monkeypatch):
+    """csrc/tile_order.cuh is compiled into K3's and P3's objects: an edit
+    to it alone must build a new library, not load the old one."""
+    from tyleri_tpu_torch import _build
+
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    before = _build.library_path()
+    header.write_text("// two\n")
+    assert _build.library_path() != before
+    assert _build._sources() == [str(tmp_path / "a.cu")]

@@ -6,7 +6,8 @@ Edge coefficients are k/8 (|k| < 128) with offsets on the 1/16 grid,
 depth coefficients on the 2^-20 grid, attribute planes k/8 and k/16; orders
 take 64 values (many ties).  Segments are sorted by CH_ZMIN (as binning
 sorts them), start off the chunk grid, some are empty, and the last ends
-3 rows before the table's end, where the chunk clamp re-reads earlier rows.
+3 rows before the table's end, where the chunk clamp re-reads earlier rows
+(or, skewed, two tiles hold most of the entries).
 2 % of the entries cover a whole tile at depth 0.25 with a small CH_ZMIN,
 so the early exit fires.
 """
@@ -55,6 +56,16 @@ def segments(rng, ntiles, E, chunk=128):
     return ts.astype(np.int32)
 
 
+def skewed_segments(rng, ntiles, E):
+    """A few tiles hold most entries (500 to 700 each against 0 to 40), in
+    no order of length: the kernel's tile order launches them first."""
+    lens = rng.integers(0, 41, ntiles)
+    heavy = rng.choice(ntiles, min(2, ntiles), replace=False)
+    lens[heavy] = rng.integers(500, 701, heavy.size)
+    ts = np.concatenate([[37], 37 + np.cumsum(lens)])
+    return np.minimum(ts, E - 3).astype(np.int32)
+
+
 def zmin_sorted(tab, ts):
     tab = tab.copy()
     for s, e in zip(ts[:-1], ts[1:]):
@@ -62,12 +73,13 @@ def zmin_sorted(tab, ts):
     return tab
 
 
-def inputs(seed, tile_h, E=1600):
+def inputs(seed, tile_h, E=1600, skew=False):
     """(table f32 [E, 24], tile starts i32, depth0 f32 [48, 256] of
-    ones, grid_w, grid_h) for tiles of 128 x tile_h."""
+    ones, grid_w, grid_h) for tiles of 128 x tile_h; ``skew``: the segments
+    of ``skewed_segments``."""
     rng = np.random.default_rng(seed)
     grid_w, grid_h = -(-FB_W // TILE_W), -(-FB_H // tile_h)
-    ts = segments(rng, grid_w * grid_h, E)
+    ts = (skewed_segments if skew else segments)(rng, grid_w * grid_h, E)
     tab = zmin_sorted(snapped_table(rng, E), ts)
     depth0 = np.ones((FB_H, FB_W), np.float32)
     return tab, ts, depth0, grid_w, grid_h

@@ -4,9 +4,10 @@ nvcc compiles every ``csrc/*.cu`` to an object, one nvcc per source, all
 started together, and links them into one shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers: the build takes seconds).
 The library lands in ``build/tyleri_tpu_torch/`` at the repository root,
-keyed by a hash of the sources and flags, and is built on the first kernel
-launch of a process, under a file lock, so that processes started together
-build it once.  A failed build raises; there is no fallback.
+keyed by a hash of the sources, their headers (``csrc/*.cuh``) and the
+flags, and is built on the first kernel launch of a process, under a file
+lock, so that processes started together build it once.  A failed build
+raises; there is no fallback.
 
 Flags: ``-fmad=false`` keeps every multiply and add separately rounded, as
 eager PyTorch does, so each kernel is bit-equal to its plain version on the
@@ -56,8 +57,10 @@ def _sources() -> list[str]:
 
 
 def library_path() -> str:
+    """The library's path, keyed by the flags, the sources and the headers
+    they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libtyleri_kernels_{h.hexdigest()[:16]}.so")
@@ -193,9 +196,12 @@ def _bind(lib) -> None:
         p, p, i, i, p,            # tile_start, table, cap, span, depth0
         i, i, i, i,               # fb_w, fb_h, grid_w, grid_h
         i, i, i, i,               # scissor
-        i, i, i, i, i, i, i, i,   # tile_h, unroll, lex, exit, strip, hoist,
+        i, i, i,                  # tile_h, threads, pixels a thread
+                                  # (p3_launch)
+        i, i, i, i, i, i, i,      # unroll, lex, exit, strip, hoist,
                                   # e2_stored, packed
         *maps, p,                 # owner, z, order, uw, vw, iw, tex; nres
+        p,                        # tile order (scratch, i32 [ntiles])
         p,                        # stream
     ]
     lib.ty_probe_mxu_smem.restype = ctypes.c_longlong

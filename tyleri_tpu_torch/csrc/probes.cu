@@ -29,8 +29,16 @@
 //     The TPU probe's [E, 24] -> [E, 128] lane pad has no counterpart.
 //     fill             replaces tools/exp_fixedcost.py: probe_launch's k
 //     fills a (grid_h * tile_h) x (grid_w * tile_w) grid with 1.0, one
-//     block per tile (the caller adds the scalar, as the TPU probe's jit
-//     does outside its kernel).
+//     block per tile, as the TPU probe's grid steps, so its five shapes
+//     keep pricing per-launch, per-block and per-pixel cost (the caller
+//     adds the scalar, as the TPU probe's jit does outside its kernel).
+//     Bound: bytes (the grid written once).  The first port gave a 16x128
+//     tile 1024 threads of two 4-byte stores, each address from a division
+//     and a modulo, and lost to torch.ones' 16-byte stores; here a warp
+//     runs along a row in 16-byte stores and FILL_ROWS warps down the rows,
+//     each thread several float4s and no division, with scalar stores at a
+//     row's ends where tile_w % 4 != 0 or the pointer is not 16-byte
+//     aligned.
 //
 // P1  pipe_cost<LEVEL, NOUT>  replaces tools/exp_pipecost.py: _kernel
 //     K3's empty-floor stages over the 1088 x 1920 frame, 16x16 tiles, `tpb`
@@ -188,11 +196,34 @@ __global__ void fixed_cost_kernel(const int* __restrict__ tile_start,
     for (int i = 1; i < n_out; ++i) static_cast<float*>(maps.m[i])[o] = s;
 }
 
-__global__ void fill_kernel(float* __restrict__ out, int tile_h, int tile_w,
-                            int width) {
-    const int y0 = blockIdx.y * tile_h, x0 = blockIdx.x * tile_w;
-    for (int e = threadIdx.x; e < tile_h * tile_w; e += blockDim.x)
-        out[(size_t)(y0 + e / tile_w) * width + x0 + e % tile_w] = 1.0f;
+constexpr int FILL_ROWS = 4;  // warps a CTA (chosen on the card, PERF.md)
+
+// A CTA a tile: a warp along a row's 16-byte columns, FILL_ROWS warps down
+// the rows.  VEC: every tile row starts 16-byte aligned (tile_w % 4 == 0 and
+// an aligned pointer), so a row is float4 stores alone; otherwise each row
+// takes scalar stores up to its first 16-byte boundary, float4 stores, and
+// scalar stores for the rest.
+template <bool VEC>
+__global__ void __launch_bounds__(32 * FILL_ROWS)
+fill_kernel(float* __restrict__ out, int tile_h, int tile_w, int width) {
+    const float4 one = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+    float* tile = out + (size_t)blockIdx.y * tile_h * width
+                  + (size_t)blockIdx.x * tile_w;
+    const int lane = threadIdx.x;
+    for (int r = threadIdx.y; r < tile_h; r += blockDim.y) {
+        float* row = tile + (size_t)r * width;
+        int head = 0, n4 = tile_w >> 2;
+        if constexpr (!VEC) {
+            head = min((int)((16 - (reinterpret_cast<uintptr_t>(row) & 15))
+                             & 15) >> 2, tile_w);
+            n4 = (tile_w - head) >> 2;
+            const int tail = tile_w - head - 4 * n4;
+            if (lane < head) row[lane] = 1.0f;
+            if (lane < tail) row[head + 4 * n4 + lane] = 1.0f;
+        }
+        float4* v = reinterpret_cast<float4*>(row + head);
+        for (int c = lane; c < n4; c += 32) v[c] = one;
+    }
 }
 
 // ---------------------------------------------------------------- P1
@@ -386,9 +417,14 @@ extern "C" int ty_fill(float* out, int grid_h, int grid_w, int tile_h,
                        int tile_w, void* stream) {
     if (grid_h <= 0 || grid_w <= 0 || tile_h <= 0 || tile_w <= 0)
         return (int)cudaErrorInvalidValue;
-    const int threads = min(tile_h * tile_w, 1024);
-    fill_kernel<<<dim3(grid_w, grid_h), threads, 0, (cudaStream_t)stream>>>(
-        out, tile_h, tile_w, grid_w * tile_w);
+    const dim3 grid(grid_w, grid_h), block(32, min(tile_h, FILL_ROWS));
+    const int width = grid_w * tile_w;
+    if (tile_w % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0)
+        fill_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+            out, tile_h, tile_w, width);
+    else
+        fill_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+            out, tile_h, tile_w, width);
     return (int)cudaGetLastError();
 }
 

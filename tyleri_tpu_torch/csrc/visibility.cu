@@ -40,9 +40,9 @@
 //     through fewer threads and the longest tiles set the launch's time;
 //     at 1 each pair costs more loads (PERF.md).  ops/raster_cuda.py's
 //     k3_launch gives the same geometry to the wrapper;
-//   * the tiles launch longest segment first: tile_order_kernel, launched
-//     just before, sorts them by segment length in buckets of 8 rows, so
-//     the long tiles overlap the many short ones;
+//   * the tiles launch longest segment first: tile_order_kernel
+//     (tile_order.cuh), launched just before, sorts them by segment length
+//     in buckets of 8 rows, so the long tiles overlap the many short ones;
 //   * a two-slot chunk ring in shared memory, filled with 16-byte cp.async:
 //     chunk k + 1 loads while chunk k resolves.  A chunk prefetched past the
 //     exit is dropped, never resolved; its load is the price, at most one
@@ -66,6 +66,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tile_order.cuh"
+
 namespace {
 
 constexpr int NC = 24;  // channels per entry row
@@ -76,9 +78,7 @@ constexpr int META_TEX_MASK = (1 << META_TEX_BITS) - 1;
 constexpr int MAX_WARPS = 32;
 // pixels a thread, every instance (ops/raster_cuda.py: K3_PPT)
 constexpr int PPT = 2;
-// the tile order: segment lengths in buckets of 8 rows, the last open
-constexpr int ORDER_THREADS = 1024;
-constexpr int ORDER_BUCKETS = 512;
+// the tile order (tile_order.cuh): segment lengths in buckets of 8 rows
 constexpr int ORDER_SHIFT = 3;
 
 struct Params {
@@ -222,47 +222,6 @@ __device__ __forceinline__ float column_max(const Column& col) {
     for (int i = 0; i < PPT; ++i)
         m = fmaxf(m, PEEL2 ? col.l2[i].zbuf : col.l1[i].zbuf);
     return m;
-}
-
-// The tiles in descending order of segment length (a counting sort on
-// buckets of 8 rows; ties in any order): the longest tiles start first, so
-// they do not run alone at the end of the launch.
-__global__ void __launch_bounds__(ORDER_THREADS)
-tile_order_kernel(const int* tile_start, int ntiles, int* order) {
-    __shared__ int count[ORDER_BUCKETS];
-    auto bucket = [&](int t) {
-        return min((tile_start[t + 1] - tile_start[t]) >> ORDER_SHIFT,
-                   ORDER_BUCKETS - 1);
-    };
-    for (int b = threadIdx.x; b < ORDER_BUCKETS; b += blockDim.x) count[b] = 0;
-    __syncthreads();
-    for (int t = threadIdx.x; t < ntiles; t += blockDim.x)
-        atomicAdd(&count[bucket(t)], 1);
-    __syncthreads();
-    if (threadIdx.x < 32) {
-        // each bucket's first slot: the tiles of every longer bucket; lane l
-        // scans 16 buckets from the top, then the lanes' sums are scanned
-        constexpr int PER = ORDER_BUCKETS / 32;
-        const int lane = threadIdx.x;
-        int sum = 0;
-        for (int i = 0; i < PER; ++i)
-            sum += count[ORDER_BUCKETS - 1 - (lane * PER + i)];
-        int incl = sum;
-        for (int off = 1; off < 32; off <<= 1) {
-            const int v = __shfl_up_sync(0xffffffffu, incl, off);
-            if (lane >= off) incl += v;
-        }
-        int run = incl - sum;
-        for (int i = 0; i < PER; ++i) {
-            const int b = ORDER_BUCKETS - 1 - (lane * PER + i);
-            const int c = count[b];
-            count[b] = run;
-            run += c;
-        }
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < ntiles; t += blockDim.x)
-        order[atomicAdd(&count[bucket(t)], 1)] = t;
 }
 
 template <bool PEEL2, bool COUNTS>
@@ -423,9 +382,8 @@ extern "C" int ty_rasterize_visibility(
     const int ntiles = grid_w * grid_h;
     if (ntiles <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
-    tile_order_kernel<<<1, ORDER_THREADS, 0, st>>>(tile_start, ntiles,
-                                                    tile_order);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err =
+        tile_order::launch(tile_start, ntiles, ORDER_SHIFT, tile_order, st);
     if (err != cudaSuccess) return (int)err;
     if (owner2 != nullptr) return (int)launch<true, false>(p, ntiles, threads, st);
     if (nvis != nullptr) return (int)launch<false, true>(p, ntiles, threads, st);

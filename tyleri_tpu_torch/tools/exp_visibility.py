@@ -36,8 +36,11 @@ K3 (``ops/raster_cuda.py``) at its own 16x16 tiles and 64-row chunks
 (``prodc32``: 32), the visit count from its counter.
 
 Kernel: ``csrc/probes_visibility.cu`` ``variant_kernel``, bit-equal to the
-plain versions.  Each call also returns the live entries each tile
-resolved (``nres``), which the bound counts.
+plain versions, on K3's design: a thread holds ``ppt`` pixels of one column
+(``p3_launch`` gives the CTA's threads and ``ppt`` by tile height), the
+tiles launch longest segment first.  Each call also returns the live
+entries each tile resolved (``nres``), which the bound counts; each record
+gives their max and mean over the tiles.
 
     python3 -m tyleri_tpu_torch.tools.exp_visibility [--device cpu]
         [--grid-n N] [--resolution WxH] [variant ...]
@@ -46,6 +49,7 @@ resolved (``nres``), which the bound counts.
 from __future__ import annotations
 
 import sys
+from typing import NamedTuple
 
 import torch
 
@@ -69,6 +73,41 @@ MAPS = 7
 OPS_BASE, OPS_LEX, OPS_E2_STORED = 27, 2, 2
 
 launches = {"visibility_variant": 0, "visibility_packed": 0}
+
+# the kernel's geometry (csrc/probes_visibility.cu: MIN_PPT, MAX_THREADS and
+# the PPTs of its instances)
+P3_MIN_PPT = 2
+P3_MAX_THREADS = 1024
+P3_PPTS = (2, 4, 8)
+
+
+class P3Launch(NamedTuple):
+    """The P3 kernel's CTA for one 128 x tile_h tile: ``threads`` threads,
+    each holding ``ppt`` pixels of one column, rows g, g + G, ... of the
+    tile (G = threads / 128 row groups)."""
+
+    tile_h: int
+    threads: int
+    ppt: int
+
+    def pixel(self, thread: int, slot: int) -> tuple[int, int]:
+        """(x, y) within the tile of a thread's pixel ``slot``."""
+        groups = self.threads // TILE_W
+        return thread % TILE_W, thread // TILE_W + slot * groups
+
+
+def p3_launch(tile_h: int) -> P3Launch:
+    """The P3 kernel's geometry at 128 x tile_h tiles: the fewest pixels a
+    thread, at least ``P3_MIN_PPT``, that fit the tile in
+    ``P3_MAX_THREADS`` threads (tile_h 8: 512 threads; 16: 1024; 32 and 64:
+    1024 threads of 4 and 8 pixels)."""
+    ppt = max(P3_MIN_PPT, -(-TILE_W * tile_h // P3_MAX_THREADS))
+    if tile_h <= 0 or tile_h % ppt or ppt not in P3_PPTS:
+        raise ValueError(
+            f"tile_h {tile_h}: the P3 kernel gives each thread {ppt} rows "
+            f"of one column, so tile_h must be a positive multiple of it "
+            f"and {ppt} one of the compiled {P3_PPTS}")
+    return P3Launch(tile_h, TILE_W * tile_h // ppt, ppt)
 
 
 def reset_launches() -> None:
@@ -305,17 +344,20 @@ def _launch(name, table, cap, span, tile_start, depth0, scissor, *, tile_h,
     if table.data_ptr() % 16 or cap < span:
         raise ValueError(f"{name}: the table must be 16-byte aligned and "
                          f"hold at least {span} entries")
+    geometry = p3_launch(tile_h)
     pad = (grid_h * tile_h, grid_w * TILE_W)
     maps = [torch.empty(pad, dtype=dt, device=dev) for dt in (
         torch.int32, *(torch.float32,) * 5, torch.int32)]
     nres = torch.empty((ntiles,), dtype=torch.int32, device=dev)
+    tile_order = torch.empty((ntiles,), dtype=torch.int32, device=dev)
     lib = _build.load()
     launches[name] += 1
     err = lib.ty_probe_visibility(
         tile_start.data_ptr(), table.data_ptr(), cap, span, depth0.data_ptr(),
-        fb_w, fb_h, grid_w, grid_h, *S.scissor_ints(scissor), tile_h, unroll,
-        int(lex), exit_mode, int(strip), int(hoist), int(e2_stored),
-        int(packed), *(m.data_ptr() for m in maps), nres.data_ptr(),
+        fb_w, fb_h, grid_w, grid_h, *S.scissor_ints(scissor), tile_h,
+        geometry.threads, geometry.ppt, unroll, int(lex), exit_mode,
+        int(strip), int(hoist), int(e2_stored), int(packed),
+        *(m.data_ptr() for m in maps), nres.data_ptr(), tile_order.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, name)
     return maps, nres
@@ -325,9 +367,9 @@ def run_variant(table, tile_start, depth0, scissor, *, tile_h=16, chunk=128,
                 unroll=4, lex=False, exit=False, lag2=False,
                 strip_attrs=False, hoist_loads=False, e2_stored=False):
     """(7 maps, nres) of ``variant_reference`` at tiles of 128 x tile_h
-    over depth0's frame: the kernel for CUDA tensors (tile_h 8, 16, 32 or
-    64; the instances csrc/probes_visibility.cu compiles), the plain
-    version for CPU ones."""
+    over depth0's frame: the kernel for CUDA tensors (the tile heights
+    ``p3_launch`` takes, with the settings csrc/probes_visibility.cu
+    compiles), the plain version for CPU ones."""
     fb_h, fb_w = depth0.shape
     grid_w, grid_h = grid_of(fb_w, fb_h, tile_h)
     if table.device.type == "cpu":
@@ -375,7 +417,8 @@ def variant_bound(nres, depth0, tile_h, ops: int,
                   entry_bytes: float = ENTRY_BYTES) -> dict:
     """The rows of the live entries resolved, the tile starts and the depth
     read once, the 7 maps written once; ``ops`` per (entry, pixel) pair
-    over every pixel of the tile."""
+    over every pixel of the tile.  Also the entries resolved, in all and
+    the most and the mean a tile."""
     fb_h, fb_w = depth0.shape
     grid_w, grid_h = grid_of(fb_w, fb_h, tile_h)
     resolved = int(nres.sum())
@@ -383,7 +426,8 @@ def variant_bound(nres, depth0, tile_h, ops: int,
               + 4 * depth0.numel() + 4 * MAPS * grid_h * tile_h * grid_w
               * TILE_W)
     return dict(_common.bound(nbytes, ops * resolved * TILE_W * tile_h),
-                resolved=resolved)
+                resolved=resolved, nres_max=int(nres.max()),
+                nres_mean=resolved / nres.numel())
 
 
 # ---------------------------------------------------------------- harness
