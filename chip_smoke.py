@@ -63,10 +63,10 @@ Phases, one printed line each or more; any failure exits non-zero:
    variants at full width, each over a CUDA graph of 20 calls, with its
    bound (P4 beside torch.index_select, P5's transpose beside
    x.t().contiguous()); then each probe kernel against its plain version
-   at the tools' shapes: bit-equal (P4 also at the port's binning gather of
-   the sponza frame, timed beside torch.index_select and table[ids]; P3 on
-   the sponza 1080p tables of every tile height, for every variant whose
-   maps differ); P2 equal on tables whose products are exact, and on the
+   at the tools' shapes: bit-equal (P7 at every variant; P4 also at the
+   port's binning gather of the sponza frame, timed beside
+   torch.index_select and table[ids]; P3 on the sponza 1080p tables of
+   every tile height, for every variant whose maps differ); P2 equal on tables whose products are exact, and on the
    tool's table within exp_mxu.compare's tolerance, the share of pixels
    with another winner printed;
 14. mesh: (a) a 1x1 (draws, tiles) mesh on NCCL, world size 1: config 2 at
@@ -105,7 +105,8 @@ Every kernel's time in the record is by CUDA events around a CUDA graph of
 20 calls (``graph_ms``), so a wrapper's host cost drops out; K1-K3 are also
 timed back to back (``back_to_back_ms``).  Each phase prints its time.  The
 last three lines are the card (nvidia-smi's name and power limit), the
-kernels' JSON record (each kernel's share is its bound over its time) and
+kernels' JSON record (each kernel's share is its bound over its time, its
+``ptxas`` the registers and spill-store bytes of its instances) and
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script fails before printing any of them.
@@ -1635,6 +1636,43 @@ PROBES = (
 )
 
 
+# each kernel of the kernels line: the start of its instances' names in
+# ptxas's report (variant_kernel's last template argument is PACKED)
+KERNEL_SYMBOLS = {
+    "fused_setup": "fused_setup_kernel",
+    "rasterize_visibility": "visibility_kernel<(bool)0, (bool)0>",
+    "rasterize_visibility_peel2": "visibility_kernel<(bool)1, (bool)0>",
+    "rasterize_visibility_counts": "visibility_kernel<(bool)0, (bool)1>",
+    "gather_rows": "gather_rows_kernel",
+    "fixed_grid": "fixed_grid_kernel",
+    "fixed_cost": "fixed_cost_kernel",
+    "fill": "fill_kernel",
+    "pipe_cost": "pipe_cost_kernel",
+    "visibility_variant": "variant_kernel",
+    "visibility_packed": "variant_kernel",
+    "mxu": "mxu_kernel",
+    "transpose_rows": "rows_to_cols_kernel<(int)24",
+    "field_compute": "rows_to_cols_kernel<(int)16",
+}
+
+
+def ptxas_of(name, resources) -> dict:
+    """{instance: [registers, spill-store bytes]} of a kernel of the
+    kernels line, from ptxas's report (``_build.kernel_resources``)."""
+    out = {}
+    for sym, (regs, spill) in resources.items():
+        sym = sym.split("::")[-1]
+        if not sym.startswith(KERNEL_SYMBOLS[name]):
+            continue
+        if sym.startswith("variant_kernel") and sym.endswith(
+                "(bool)1>") != (name == "visibility_packed"):
+            continue
+        out[sym] = [regs, spill]
+    if not out:
+        raise AssertionError(f"{name}: no instance in ptxas's report")
+    return out
+
+
 def entry_ids(table, entries):
     """The row of ``table`` that each entry row copies bit for bit (the ids
     binning gathered by), found by hashing the rows' bits."""
@@ -1734,16 +1772,16 @@ def phase_probes(device, card, records, launches, sponza_gather, reps=20,
         f" binning's table[ids] {index_ms:.4f} ms; {share(sb)}")
     del ids, table, stable, entries, sids, sids64
 
-    # P7
+    # P7: every variant of the tool, and one more without the block max
     depth = exp_fixed_grid.depth_input(device)
     depth[::97, ::89] = 2.5   # blocks whose max adds 1.0
+    depth[1079, 300] = 2.5    # and a padded last block row's
     err["fixed_grid"] = max(
-        check_bit_equal(f"fixed_grid rows {rows}",
-                        exp_fixed_grid.fixed_grid(depth, rows, nouts, zmax),
-                        exp_fixed_grid.fixed_grid_reference(depth, rows,
-                                                            nouts, zmax))
-        for rows, nouts, zmax in ((16, 7, True), (128, 7, True),
-                                  (32, 3, False), (64, 1, True)))
+        check_bit_equal(f"fixed_grid {kw}",
+                        exp_fixed_grid.fixed_grid(depth, **kw),
+                        exp_fixed_grid.fixed_grid_reference(depth, **kw))
+        for kw in (*exp_fixed_grid.VARIANTS.values(),
+                   dict(rows=32, nouts=3, zmax_reduce=False)))
     plain_ms["fixed_grid"] = cuda_ms(
         lambda: exp_fixed_grid.fixed_grid_reference(depth, 16), 5)
 
@@ -1889,9 +1927,9 @@ def main() -> int:
     _build.load()
     log("build", f"kernels built and loaded in {time.perf_counter() - t0:.1f}"
         f" s ({_build.library_path()})")
+    resources = _build.kernel_resources()
     log("build", "registers (spill-store bytes) by ptxas: " + "; ".join(
-        f"{k} {r} ({s} B)"
-        for k, (r, s) in sorted(_build.kernel_resources().items())))
+        f"{k} {r} ({s} B)" for k, (r, s) in sorted(resources.items())))
 
     def build_device(callback=None, anisotropy=None):
         b = RenderDeviceBuilder().validation_level(ValidationLevel.WARNING)
@@ -1964,6 +2002,7 @@ def main() -> int:
         raise AssertionError(f"a kernel no path launched: {launches}")
     for k in kernels:
         k["share"] = k["bound_ms"] / k["ms"]
+        k["ptxas"] = ptxas_of(k["name"], resources)
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} "
         f"s; launches per path {launches}")
     print(card)

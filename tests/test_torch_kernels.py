@@ -24,7 +24,7 @@ from tyleri_tpu_torch.ops.visibility import (
     rasterize_visibility_stream_reference,
 )
 from tyleri_tpu_torch.testing.overdraw import overdraw_table
-from tyleri_tpu_torch.tools import exp_mxu
+from tyleri_tpu_torch.tools import exp_fixed_grid, exp_mxu
 
 pytestmark = pytest.mark.cuda
 
@@ -464,17 +464,53 @@ def test_gather_rows_bit_equal(cuda_device, C, E, sort):
     assert torch.equal(sums.view(torch.int32), want_sums.view(torch.int32))
 
 
-@pytest.mark.parametrize("rows,nouts,zmax", [(16, 7, True), (128, 7, True),
-                                             (32, 3, False), (64, 1, True)])
-def test_fixed_grid_bit_equal(cuda_device, rows, nouts, zmax):
-    from tyleri_tpu_torch.tools import exp_fixed_grid
+# every variant of the tool, and two settings it does not time
+P7_CASES = {**exp_fixed_grid.VARIANTS,
+            "rows32_outs3_nozmax": dict(rows=32, nouts=3, zmax_reduce=False),
+            "rows64_outs1_zmax": dict(rows=64, nouts=1)}
 
-    depth = exp_fixed_grid.depth_input(cuda_device, seed=rows)
-    depth[::97, ::89] = 2.5   # blocks whose max adds 1.0
-    got = exp_fixed_grid.fixed_grid(depth, rows, nouts, zmax)
-    want = exp_fixed_grid.fixed_grid_reference(depth, rows, nouts, zmax)
+
+@pytest.mark.parametrize("case", sorted(P7_CASES))
+def test_fixed_grid_bit_equal(cuda_device, case):
+    """On the hot blocks of the CPU tests, one of them in the frame's last
+    row, so that the padded last block row (rows 16 and 128) adds 1.0 to
+    its pad too."""
+    from torch_probe_tables import depth_with_hot_blocks
+
+    kw = P7_CASES[case]
+    d = depth_with_hot_blocks(kw["rows"] + kw.get("nouts", 7))
+    d[1079, 300] = 2.5
+    depth = torch.from_numpy(d).to(cuda_device)
+    exp_fixed_grid.reset_launches()
+    got = exp_fixed_grid.fixed_grid(depth, **kw)
+    want = exp_fixed_grid.fixed_grid_reference(depth, **kw)
+    torch.cuda.synchronize()
+    assert exp_fixed_grid.launches["fixed_grid"] == 1
     for g, w in zip(got, want, strict=True):
         assert g.dtype == w.dtype and torch.equal(g, w)
+    if kw.get("zmax_reduce", True) and kw["rows"] in (16, 128):
+        # the pad below row 1080 is 0 + 1.0 under the hot pixel
+        assert bool((got[0][1080:, 256:384] == 1.0).all())
+
+
+def test_fixed_grid_rejects_what_the_kernel_does_not_take(cuda_device):
+    """A depth view off the 16-byte grid, and more rows a block than 32
+    warps of 8 rows hold, raise before any launch."""
+    depth = exp_fixed_grid.depth_input(cuda_device)
+    shifted = torch.empty(depth.numel() + 1, device=cuda_device)[1:].view(
+        depth.shape)
+    shifted.copy_(depth)
+    exp_fixed_grid.reset_launches()
+    with pytest.raises(ValueError, match="aligned"):
+        exp_fixed_grid.fixed_grid(shifted, 16)
+    with pytest.raises(ValueError, match="rows"):
+        exp_fixed_grid.fixed_grid(depth, exp_fixed_grid.MAX_ROWS + 1)
+    assert exp_fixed_grid.launches["fixed_grid"] == 0
+    got = exp_fixed_grid.fixed_grid(depth, exp_fixed_grid.MAX_ROWS)
+    want = exp_fixed_grid.fixed_grid_reference(depth,
+                                               exp_fixed_grid.MAX_ROWS)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("case,n_out", [("empty", 7), ("segments", 7),
@@ -635,6 +671,50 @@ def test_probe_visibility_packed_on_skewed_segments(cuda_device, exit, lag2):
     torch.cuda.synchronize()
     for g, w in zip(got, want, strict=True):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert torch.equal(nres, want_nres)
+
+
+@pytest.mark.parametrize("exit,lag2", [(True, False), (False, False),
+                                       (True, True)])
+@pytest.mark.parametrize("lane", range(5))
+def test_probe_visibility_packed_at_row_edges(cuda_device, lane, exit, lag2):
+    """Segments that start and end on every lane of a packed row, an empty
+    one, some inside one row, and a last one whose last window is clamped
+    at cap - 130 (the packed table without its pad rows)."""
+    from torch_probe_tables import (
+        packed_edge_segments,
+        snapped_table,
+        zmin_sorted,
+    )
+
+    from tyleri_tpu_torch.tools import exp_visibility as V
+
+    E, fb_w, fb_h = 1600, 256, 96
+    rng = np.random.default_rng(40 + lane)
+    ts_np = packed_edge_segments(lane, E)
+    tab = zmin_sorted(snapped_table(rng, E), ts_np)
+    packed = V.pack5(torch.from_numpy(tab))[:-V.ROWS_PER_WIN].to(cuda_device)
+    cap = V.PACK * packed.shape[0]
+    start, end = int(ts_np[-2]), int(ts_np[-1])
+    nch = -(-(end - (start - start % V.PACK)) // V.ENT_PER_WIN)
+    assert start - start % V.PACK + (nch - 1) * V.ENT_PER_WIN \
+        > cap - V.ENT_PER_WIN   # the last window is clamped
+    ts = torch.from_numpy(ts_np).to(cuda_device)
+    depth0 = torch.ones((fb_h, fb_w), device=cuda_device)
+    scissor = (0, 0, fb_w, fb_h)
+    V.reset_launches()
+    got, nres = V.run_packed(packed, ts, depth0, scissor, exit=exit,
+                             lag2=lag2)
+    grid_w, grid_h = V.grid_of(fb_w, fb_h, 16)
+    assert grid_w * grid_h + 1 == ts.numel()
+    want, want_nres = V.packed_reference(packed, ts, depth0, scissor,
+                                         tile_h=16, grid_w=grid_w,
+                                         grid_h=grid_h, exit=exit, lag2=lag2)
+    torch.cuda.synchronize()
+    assert V.launches["visibility_packed"] == 1
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and torch.equal(
+            g.view(torch.int32), w.view(torch.int32))
     assert torch.equal(nres, want_nres)
 
 

@@ -34,6 +34,7 @@ from tyleri_tpu_torch.tools import (
     exp_pipecost,
     exp_visibility,
 )
+from torch_probe_tables import depth_with_hot_blocks
 
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools")
@@ -115,15 +116,6 @@ def test_gather_rows_and_every_chunk_sum(C, E, sort):
 
 
 # ---------------------------------------------------------------- P7
-
-def depth_with_hot_blocks(seed):
-    """A D16-grid depth buffer with a few values above 2.0, so some blocks'
-    max adds 1.0."""
-    rng = np.random.default_rng(seed)
-    d = (rng.integers(0, 65536, (1080, 1920)) / 65535.0).astype(np.float32)
-    d[rng.integers(0, 1080, 12), rng.integers(0, 1920, 12)] = 2.5
-    return d
-
 
 @pytest.mark.parametrize("rows,nouts,zmax", [
     (16, 7, True), (32, 7, True), (128, 7, True), (16, 3, True),

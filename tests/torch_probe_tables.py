@@ -1,6 +1,7 @@
 """Inputs for the P3 probe's tests (tools/exp_visibility.py): a random
 entry table whose planes are exact in f32 whatever the order of
-evaluation, and tile segments over a 256 x 48 frame.
+evaluation, and tile segments over a 256 x 48 frame; and P7's depth buffer
+(tools/exp_fixed_grid.py) with hot blocks.
 
 Edge coefficients are k/8 (|k| < 128) with offsets on the 1/16 grid,
 depth coefficients on the 2^-20 grid, attribute planes k/8 and k/16; orders
@@ -83,3 +84,24 @@ def inputs(seed, tile_h, E=1600, skew=False):
     tab = zmin_sorted(snapped_table(rng, E), ts)
     depth0 = np.ones((FB_H, FB_W), np.float32)
     return tab, ts, depth0, grid_w, grid_h
+
+
+def packed_edge_segments(lane, E=1600):
+    """Tile starts over E entries for 2 x 6 tiles of 128 x 16 (a 256 x 96
+    frame), the first starting on lane ``lane`` of a packed row: segments
+    that start and end on every lane, an empty one, some inside one row,
+    long ones across windows, and a last one that runs to entry E, so that
+    on a packed table without its pad rows its last window is clamped at
+    cap - 130."""
+    lens = [2, 0, 1, 3, 4, 139, 6, 262, 9, 133, 2]
+    ts = np.concatenate([[200 + lane], 200 + lane + np.cumsum(lens), [E]])
+    return ts.astype(np.int32)
+
+
+def depth_with_hot_blocks(seed):
+    """A D16-grid depth buffer with a few values above 2.0, so some blocks'
+    max adds 1.0."""
+    rng = np.random.default_rng(seed)
+    d = (rng.integers(0, 65536, (1080, 1920)) / 65535.0).astype(np.float32)
+    d[rng.integers(0, 1080, 12), rng.integers(0, 1920, 12)] = 2.5
+    return d

@@ -17,9 +17,11 @@ so each module's counterpart lives under the same path.  The package imports
 nothing of ``tyleri_tpu`` and never imports JAX: the numpy-only modules it
 needs (pipeline state, scenes, models, the oracle, math, allocators,
 swapchain, the native host runtime) are its own copies, held against their
-originals by ``tests/test_torch_vendored.py``.  What a program needs to
-drive a frame is exported here (``scenes``, ``RenderScene``,
-``ImageViewSwapchain``).
+originals by ``tests/test_torch_vendored.py``.  Every public name of
+``tyleri_tpu``'s root is exported here, from the port's module under the
+same path, and with them what a program needs to drive a frame
+(``scenes``, ``ImageViewSwapchain``, ``RasterPlan``, ``make_render_mesh``);
+the names resolve lazily, so importing the package touches no CUDA.
 
 ``tools/`` holds the port of the JAX package's TPU probe tools
 (``python3 -m tyleri_tpu_torch.tools.<name>``), each a hand-written CUDA
@@ -42,19 +44,42 @@ import importlib
 __version__ = "0.1.0"
 
 _EXPORTS = {
+    "Vertex": "tyleri_tpu_torch.api.vertex",
+    "UIVertex": "tyleri_tpu_torch.api.vertex",
+    "LitVertex": "tyleri_tpu_torch.api.vertex",
+    "DirectionalLight": "tyleri_tpu_torch.scene.light",
     "RenderDeviceBuilder": "tyleri_tpu_torch.device.builders",
     "DeviceSelectionError": "tyleri_tpu_torch.device.builders",
     "ValidationLevel": "tyleri_tpu_torch.device.builders",
     "RenderDevice": "tyleri_tpu_torch.device.render_device",
-    "ForwardRenderingFunction": "tyleri_tpu_torch.rendering.forward",
-    "RenderWindow": "tyleri_tpu_torch.window.render_window",
-    "WindowHandle": "tyleri_tpu_torch.window.render_window",
-    "RasterPlan": "tyleri_tpu_torch.rendering.passes",
-    "RenderScene": "tyleri_tpu_torch.scene.render_scene",
-    "ImageViewSwapchain": "tyleri_tpu_torch.window.swapchain",
+    "BlendFactor": "tyleri_tpu_torch.pipeline.state",
+    "BlendOp": "tyleri_tpu_torch.pipeline.state",
+    "BlendState": "tyleri_tpu_torch.pipeline.state",
     "CompareOp": "tyleri_tpu_torch.pipeline.state",
+    "CullMode": "tyleri_tpu_torch.pipeline.state",
     "DepthFormat": "tyleri_tpu_torch.pipeline.state",
     "DepthState": "tyleri_tpu_torch.pipeline.state",
+    "FrontFace": "tyleri_tpu_torch.pipeline.state",
+    "MESH_PIPELINE_STATE": "tyleri_tpu_torch.pipeline.state",
+    "PipelineState": "tyleri_tpu_torch.pipeline.state",
+    "RasterState": "tyleri_tpu_torch.pipeline.state",
+    "UI_PIPELINE_STATE": "tyleri_tpu_torch.pipeline.state",
+    "ForwardRenderingFunction": "tyleri_tpu_torch.rendering.forward",
+    "RasterPlan": "tyleri_tpu_torch.rendering.passes",
+    "RenderingFunction": "tyleri_tpu_torch.rendering.function",
+    "Camera": "tyleri_tpu_torch.scene.camera",
+    "MeshRenderer": "tyleri_tpu_torch.scene.mesh_renderer",
+    "RenderScene": "tyleri_tpu_torch.scene.render_scene",
+    "Rect2D": "tyleri_tpu_torch.utils.math3d",
+    "Viewport": "tyleri_tpu_torch.utils.math3d",
+    "RenderWindow": "tyleri_tpu_torch.window.render_window",
+    "WindowHandle": "tyleri_tpu_torch.window.render_window",
+    "ImageViewSwapchain": "tyleri_tpu_torch.window.swapchain",
+    "CommonPipeline": "tyleri_tpu_torch.pipeline.common_pipeline",
+    "UIPipeline": "tyleri_tpu_torch.pipeline.ui_pipeline",
+    "UIElement": "tyleri_tpu_torch.scene.ui",
+    "ParallelGroup": "tyleri_tpu_torch.scene.parallel_group",
+    "FrameProfiler": "tyleri_tpu_torch.utils.profiling",
     "make_render_mesh": "tyleri_tpu_torch.parallel.mesh",
 }
 _MODULES = {

@@ -19,6 +19,14 @@
 //     reduction), then write `nouts` maps: map 0 the depth plus 1 where the
 //     max exceeds 2, maps 1 and 6 i32 -1, the rest f32 0.  Bound: bytes
 //     (the depth read once, the maps written once): K3's floor of stores.
+//     The first port (256 threads a block, 4-byte accesses addressed by a
+//     division, the depth read twice under the max, the map count and type
+//     tested a pixel) reached 45.9 % of it; here a warp runs along a block
+//     row in 16-byte loads and stores (1920 = 15 x 128: only the rows past
+//     the frame need a guard), 8 rows a warp, the depth held in
+//     registers from its one read to its store, one barrier for the max,
+//     and the constant maps stored as their bits, the map loop outside
+//     the pixels'.
 //
 // P6  fixed_cost       replaces tools/exp_fixedcost.py: _kernel
 //     K3's empty-segment chunk loop: per 16x16 tile, state = depth (zero
@@ -109,51 +117,77 @@ __global__ void gather_rows_kernel(const int* __restrict__ ids,
 
 constexpr int GRID_TILE_W = 128;  // the TPU block's width, kept: the max
                                   // is over rows x 128 pixels
-constexpr int FIXED_THREADS = 256;
-
-__device__ float block_max(float v, float* scratch) {
-    for (int off = 16; off > 0; off >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int nwarps = (blockDim.x + 31) >> 5;
-    if (lane == 0) scratch[warp] = v;
-    __syncthreads();
-    float m = scratch[0];
-    for (int w = 1; w < nwarps; ++w) m = fmaxf(m, scratch[w]);
-    return m;
-}
+constexpr int GRID_VEC = GRID_TILE_W / 4;  // a block row's float4s: a warp
+// RPT block rows a warp (rows w, w + W, ...: W = ceil(rows / RPT) warps a
+// CTA, at most 32): 8 ran fastest of 1, 2, 4, 8 and 16 at rows 16 to 128
+// (PERF.md)
+constexpr int FIXED_RPT = 8;
+constexpr int FIXED_WARPS = 32;
+constexpr int FIXED_MAX_ROWS = FIXED_RPT * FIXED_WARPS;
 
 struct Maps {
     void* m[7];
 };
 
-__global__ void fixed_grid_kernel(const float* __restrict__ depth, int pad_w,
-                                  int rows, int nouts, int zmax, Maps maps) {
-    __shared__ float red[32];
-    const int y0 = blockIdx.y * rows, x0 = blockIdx.x * GRID_TILE_W;
-    const int npx = rows * GRID_TILE_W;
-    float add = 0.0f;
-    if (zmax) {
-        float m = -INFINITY;
-        for (int e = threadIdx.x; e < npx; e += blockDim.x) {
-            const int y = y0 + e / GRID_TILE_W, x = x0 + e % GRID_TILE_W;
-            const float z = (y < FRAME_H && x < FRAME_W)
-                ? depth[(size_t)y * FRAME_W + x] : 0.0f;
-            m = fmaxf(m, z);
-        }
-        add = block_max(m, red) > 2.0f ? 1.0f : 0.0f;
+// One CTA a block of `rows` x 128 pixels: a warp along a row, lane l on
+// pixels 4l .. 4l + 3, warp w on rows w, w + W, ... (W = blockDim.y).  The
+// depth is read once, as float4, and held in registers; under ZMAX the
+// block's max takes one barrier.  Every map is written in 16-byte stores;
+// maps 1 .. nouts - 1 are constants (i32 -1 for maps 1 and 6, f32 0),
+// stored as their bits, the map loop outside the pixels'.
+template <bool ZMAX>
+__global__ void __launch_bounds__(32 * FIXED_WARPS)
+fixed_grid_kernel(const float4* __restrict__ depth, int rows, int nouts,
+                  Maps maps) {
+    __shared__ float red[FIXED_WARPS];
+    constexpr int PAD_VEC = FRAME_W / 4;  // 1920 = 15 x 128: no column pad
+    const int nw = blockDim.y, w = threadIdx.y;
+    const int x4 = blockIdx.x * GRID_VEC + threadIdx.x;
+    const int y0 = blockIdx.y * rows;
+    constexpr int RPT = FIXED_RPT;
+    float4 z[RPT];
+    float m = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+        const int r = w + i * nw, y = y0 + r;
+        // rows past the frame are the zero pad, part of the block's max
+        z[i] = r < rows && y < FRAME_H ? depth[(size_t)y * PAD_VEC + x4]
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ZMAX && r < rows)
+            m = fmaxf(m, fmaxf(fmaxf(z[i].x, z[i].y), fmaxf(z[i].z, z[i].w)));
     }
-    for (int e = threadIdx.x; e < npx; e += blockDim.x) {
-        const int y = y0 + e / GRID_TILE_W, x = x0 + e % GRID_TILE_W;
-        const size_t o = (size_t)y * pad_w + x;
-        const float z = (y < FRAME_H && x < FRAME_W)
-            ? depth[(size_t)y * FRAME_W + x] : 0.0f;
-        for (int i = 0; i < nouts; ++i) {
-            if (i == 1 || i == 6)
-                static_cast<int*>(maps.m[i])[o] = -1;
-            else
-                static_cast<float*>(maps.m[i])[o] =
-                    i == 0 ? (zmax ? z + add : z) : 0.0f;
+    if constexpr (ZMAX) {
+        for (int off = 16; off > 0; off >>= 1)
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        if (threadIdx.x == 0) red[w] = m;
+        __syncthreads();
+        m = red[0];
+        for (int i = 1; i < nw; ++i) m = fmaxf(m, red[i]);
+        const float add = m > 2.0f ? 1.0f : 0.0f;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+            z[i].x = z[i].x + add;
+            z[i].y = z[i].y + add;
+            z[i].z = z[i].z + add;
+            z[i].w = z[i].w + add;
+        }
+    }
+    float4* m0 = static_cast<float4*>(maps.m[0]);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+        const int r = w + i * nw;
+        if (r < rows) m0[(size_t)(y0 + r) * PAD_VEC + x4] = z[i];
+    }
+#pragma unroll
+    for (int k = 1; k < 7; ++k) {
+        if (k >= nouts) break;  // uniform
+        const int bits = k == 1 || k == 6 ? -1 : 0;  // i32 -1, f32 0
+        const int4 v = make_int4(bits, bits, bits, bits);
+        int4* mk = static_cast<int4*>(maps.m[k]);
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+            const int r = w + i * nw;
+            if (r < rows) mk[(size_t)(y0 + r) * PAD_VEC + x4] = v;
         }
     }
 }
@@ -384,13 +418,23 @@ extern "C" int ty_gather_rows(const int* ids, const float* table, int T,
 extern "C" int ty_fixed_grid(const float* depth, int rows, int nouts,
                              int zmax, void* m0, void* m1, void* m2, void* m3,
                              void* m4, void* m5, void* m6, void* stream) {
-    if (rows <= 0 || nouts < 1 || nouts > 7) return (int)cudaErrorInvalidValue;
-    const int grid_h = (FRAME_H + rows - 1) / rows;
-    const int grid_w = (FRAME_W + GRID_TILE_W - 1) / GRID_TILE_W;
+    if (rows <= 0 || rows > FIXED_MAX_ROWS || nouts < 1 || nouts > 7)
+        return (int)cudaErrorInvalidValue;
     const Maps maps{{m0, m1, m2, m3, m4, m5, m6}};
-    fixed_grid_kernel<<<dim3(grid_w, grid_h), FIXED_THREADS, 0,
-                        (cudaStream_t)stream>>>(depth, grid_w * GRID_TILE_W,
-                                                rows, nouts, zmax, maps);
+    if ((reinterpret_cast<uintptr_t>(depth) & 15) != 0)
+        return (int)cudaErrorMisalignedAddress;
+    for (int i = 0; i < nouts; ++i)
+        if ((reinterpret_cast<uintptr_t>(maps.m[i]) & 15) != 0)
+            return (int)cudaErrorMisalignedAddress;
+    const dim3 grid(FRAME_W / GRID_TILE_W, (FRAME_H + rows - 1) / rows),
+        block(32, (rows + FIXED_RPT - 1) / FIXED_RPT);
+    const float4* d4 = reinterpret_cast<const float4*>(depth);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (zmax)
+        fixed_grid_kernel<true><<<grid, block, 0, st>>>(d4, rows, nouts, maps);
+    else
+        fixed_grid_kernel<false><<<grid, block, 0, st>>>(d4, rows, nouts,
+                                                         maps);
     return (int)cudaGetLastError();
 }
 

@@ -15,8 +15,9 @@
 // counted from the chunk-aligned base below its start (the TPU kernel's
 // base and its clamp min(base + k * span, cap - span), which may resolve an
 // entry twice).  Entries run in groups of UNROLL, as the TPU kernel's
-// unrolled loop; an entry outside [start, end) is skipped.  The kernel
-// reads no broad list: the TPU probes leave theirs unread.
+// unrolled loop; an entry outside [start, end) is skipped (the packed
+// path's loop is its own, below).  The kernel reads no broad list: the TPU
+// probes leave theirs unread.
 //
 //   LEX     the production compare: zq < z, or zq == z and order >= the
 //           pixel's order; without it zq <= z, and the order still written;
@@ -53,10 +54,10 @@
 //   * the tiles launch longest segment first (tile_order.cuh, launched by
 //     the same C call), in buckets that grow with the tile's area;
 //   * an entry's coverage and depth coefficients are read with 16-byte
-//     shared-memory loads (rows are 96 B, 16-byte aligned; packed rows hold
-//     entries at 96-byte steps), and each plane's c0 * x is computed once
-//     an entry for the column (the same product, so the same bits as at
-//     every pixel);
+//     shared-memory loads (rows are 96 B, 16-byte aligned; packed rows of
+//     512 B hold entries at 96-byte steps), and each plane's c0 * x is
+//     computed once an entry for the column (the same product, so the
+//     same bits as at every pixel);
 //   * a two-slot chunk ring filled with 16-byte cp.async: chunk k + 1 loads
 //     while chunk k resolves.  A chunk loads only the rows the tile reads
 //     (its rows up to the segment's end);
@@ -75,6 +76,21 @@
 // are NaN, so no entry covers it) in place of a flag.  At PPT 8 the state
 // alone exceeds 64 registers; the instance spills (PERF.md records how
 // much).
+//
+// The packed path (P3b) takes the same geometry, ring and exit, and its
+// own staging and entry loop, built on what the TPU kernel was built on: a
+// window starts on a row (start - start % 5, and cap and the 130-entry
+// span are multiples of 5), so every entry's place in its row is static.
+// The generic loop, taken before, paid an entry an offset by
+// division ((j / 5) * 128 + (j % 5) * 24) and a live test, and staged the
+// 8 pad lanes of every row: 13-17 % more a pair than the unpacked resolve.
+// Here a window stages each row's 120 live floats (30 16-byte copies, at
+// the table's 128-float row stride), and the loop walks its rows with a
+// row pointer: the five entries of a row at static offsets 0, 24, 48, 72
+// and 96 floats, the first and last rows (where the dead lead and tail
+// entries are) peeled and looped over their live entries alone.  A
+// window unpacked to [130, 24] in shared memory, the loop P3a's without
+// its live test, was the slower in every turn (PERF.md).
 //
 // Numerics: built with -fmad=false and rintf (round half to even, as
 // torch.round), so the maps are bit-equal to variant_reference and
@@ -102,12 +118,14 @@ constexpr int MAX_THREADS = 1024;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 // the tile order's bucket at tile_h 8: 8 rows, twice as wide a step up
 constexpr int ORDER_SHIFT_TH8 = 3;
-constexpr int PACK = 5, PACK_ROW = 128, WIN_ROWS = 26;
+// pack5's table: PACK entries of NC floats a row of PACK_ROW floats (the
+// last 8 lanes pad); a packed row's live floats are PACK_VEC 16-byte vectors
+constexpr int PACK = 5, PACK_ROW = 128, PACK_VEC = PACK * NC / 4;
 
 struct Params {
     const int* tile_start;  // [ntiles + 1]
     const float* table;     // [E, 24], or packed [rows, 128]; 16-B aligned
-    int cap;                // entries the table holds (5 rows a packed row)
+    int cap;                // entries the table holds (5 a packed row)
     int span;               // entries a chunk (window) holds
     const float* depth0;    // [fb_h, fb_w]
     int fb_w, fb_h, grid_w;
@@ -144,18 +162,11 @@ __device__ __forceinline__ float warp_max(float v) {
     return v;
 }
 
-// the smem offset of chunk entry j
-template <bool PACKED>
-__device__ __forceinline__ int entry_offset(int j) {
-    if constexpr (PACKED) return (j / PACK) * PACK_ROW + (j % PACK) * NC;
-    return j * NC;
-}
-
 template <int PPT, int UNROLL, bool LEX, int EXIT, bool STRIP, bool HOIST,
           bool E2S, bool PACKED>
 __global__ void __launch_bounds__(MAX_THREADS)
 variant_kernel(Params p) {
-    extern __shared__ __align__(16) float sbuf[];  // [2][chunk rows]
+    extern __shared__ __align__(16) float sbuf[];  // [2][span, NC]
     // each warp's depth max after chunk k in slot k % 3; before chunk 0
     // (chunks -1 and -2) in slots 2 and 1
     __shared__ float red[3][MAX_WARPS];
@@ -166,7 +177,7 @@ variant_kernel(Params p) {
     __shared__ int seg[4];
     const volatile int* vseg = seg;
     const int span = p.span;
-    const int buf_floats = PACKED ? WIN_ROWS * PACK_ROW : span * NC;
+    const int buf_floats = PACKED ? span / PACK * PACK_ROW : span * NC;
     const int groups = blockDim.x / TILE_W;  // G: row groups of the tile
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int nwarps = blockDim.x >> 5;
@@ -175,19 +186,24 @@ variant_kernel(Params p) {
     auto chunk_at = [&](int k, int base) {
         return min(base + k * span, p.cap - span);
     };
-    auto issue = [&](int k, int s, int n) {  // rows s .. s + n into slot k & 1
+    auto issue = [&](int k, int s, int n) {  // entries s .. s + n into slot k & 1
         float* dst = sbuf + (k & 1) * buf_floats;
-        const float* src;
-        int nvec;
         if constexpr (PACKED) {
-            src = p.table + (size_t)(s / PACK) * PACK_ROW;
-            nvec = (n + PACK - 1) / PACK * (PACK_ROW / 4);
+            // s is a row's first entry: the rows up to entry s + n, at
+            // their table stride, each row's PACK_VEC live vectors and not
+            // its pad lanes
+            const float* src = p.table + (size_t)(s / PACK) * PACK_ROW;
+            const int nvec = (n + PACK - 1) / PACK * PACK_VEC;
+            for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+                const int r = v / PACK_VEC;
+                const int o = r * PACK_ROW + 4 * (v - r * PACK_VEC);
+                cp_async16(dst + o, src + o);
+            }
         } else {
-            src = p.table + (size_t)s * NC;
-            nvec = n * (NC / 4);
+            const float* src = p.table + (size_t)s * NC;
+            for (int v = threadIdx.x; v < n * (NC / 4); v += blockDim.x)
+                cp_async16(dst + 4 * v, src + 4 * v);
         }
-        for (int v = threadIdx.x; v < nvec; v += blockDim.x)
-            cp_async16(dst + 4 * v, src + 4 * v);
         asm volatile("cp.async.commit_group;\n" ::);
     };
 
@@ -302,7 +318,9 @@ variant_kernel(Params p) {
         if constexpr (EXIT > 0) {
             // uniform: a shared value against the tile's max after chunk
             // k - EXIT
-            if (buf[entry_offset<PACKED>(jlo) + CH_ZMIN] * inv_q
+            const int ej = PACKED ? jlo / PACK * PACK_ROW + jlo % PACK * NC
+                                  : jlo * NC;
+            if (buf[ej + CH_ZMIN] * inv_q
                 > tile_max((k + 3 - EXIT) % 3))
                 break;
         }
@@ -310,12 +328,39 @@ variant_kernel(Params p) {
             const int s1 = chunk_at(k + 1, vseg[3]);
             issue(k + 1, s1, min(vseg[2] - s1, span));  // up to the end
         }
-        for (int j0 = jlo - jlo % UNROLL; j0 < jhi; j0 += UNROLL) {
+        if constexpr (PACKED) {
+            // rows r0 .. r1 of the window hold [jlo, jhi): the first and
+            // the last row, where the dead lead and tail entries are, loop
+            // over their live entries; each row between resolves its PACK
+            // entries at static offsets from the row pointer, untested
+            const int r0 = jlo / PACK, r1 = (jhi - 1) / PACK;
+            {
+                const float* row = buf + r0 * PACK_ROW;
+                const int hi = r0 == r1 ? jhi - r0 * PACK : PACK;
+#pragma unroll 1
+                for (int u = jlo - r0 * PACK; u < hi; ++u)
+                    resolve(row + u * NC, s + r0 * PACK + u);
+            }
+            for (int r = r0 + 1; r < r1; ++r) {
+                const float* row = buf + r * PACK_ROW;
 #pragma unroll
-            for (int u = 0; u < UNROLL; ++u) {
-                const int j = j0 + u;
-                if (j < jlo || j >= jhi) continue;  // uniform
-                resolve(buf + entry_offset<PACKED>(HOIST ? 0 : j), s + j);
+                for (int u = 0; u < PACK; ++u)
+                    resolve(row + u * NC, s + r * PACK + u);
+            }
+            if (r1 > r0) {
+                const float* row = buf + r1 * PACK_ROW;
+#pragma unroll 1
+                for (int u = 0; u < jhi - r1 * PACK; ++u)
+                    resolve(row + u * NC, s + r1 * PACK + u);
+            }
+        } else {
+            for (int j0 = jlo - jlo % UNROLL; j0 < jhi; j0 += UNROLL) {
+#pragma unroll
+                for (int u = 0; u < UNROLL; ++u) {
+                    const int j = j0 + u;
+                    if (j < jlo || j >= jhi) continue;  // uniform
+                    resolve(buf + (HOIST ? 0 : j) * NC, s + j);
+                }
             }
         }
         if constexpr (EXIT > 0) publish_max(k % 3);
@@ -408,7 +453,7 @@ extern "C" int ty_probe_visibility(
     const Params p{tile_start, table, cap, span, depth0, fb_w, fb_h, grid_w,
                    scx, scy, scw, sch, owner, z, order, uw, vw, iw, tex,
                    nres, tile_order};
-    const int buf_floats = packed ? WIN_ROWS * PACK_ROW : span * NC;
+    const int buf_floats = packed ? span / PACK * PACK_ROW : span * NC;
     const size_t smem = 2 * (size_t)buf_floats * sizeof(float);
     const int ntiles = grid_w * grid_h;
     cudaStream_t st = (cudaStream_t)stream;

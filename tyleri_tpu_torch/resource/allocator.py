@@ -6,23 +6,50 @@ Owns:
   from (initial capacities mirror the reference: 2048 vertices / 1024
   indices, ref: resource_allocator.rs:15-16,31-44)
 * the texture arena (descriptor-heap analog)
+* the upload queue — the transfer-queue analog: a lock that serializes
+  flushes of the geometry arenas to the allocator's device (ref:
+  parking_lot::Mutex<ParallelRecordingQueue>, resource_allocator.rs:20)
+
 The port's own copy of ``tyleri_tpu/resource/allocator.py``, which it
 never imports; ``tests/test_torch_vendored.py`` holds the two together.
-The JAX class's upload queue and device snapshots are left out: the port
-copies the arenas to the card in ``resource/arenas.py::geometry_tensors``
-and ``resource/textures.py::texture_tensors``.
+The frame path copies the arenas to the card through
+``resource/arenas.py::geometry_tensors`` and
+``resource/textures.py::texture_tensors``, which take the device
+explicitly; the JAX class's snapshot methods are left out.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import threading
 
-from tyleri_tpu_torch.resource.arenas import BindlessBufferAllocator
+import numpy as np
+import torch
+
+from tyleri_tpu_torch.resource.arenas import (
+    BindlessBufferAllocator,
+    device_arrays,
+)
 from tyleri_tpu_torch.resource.resource_info import ResourcesInfo
 from tyleri_tpu_torch.resource.textures import TextureArena
 
 VERTICES_INIT_SIZE = 2048  # ref: resource_allocator.rs:15
 INDICES_INIT_SIZE = 1024   # ref: resource_allocator.rs:16
+
+
+class UploadQueue:
+    """Transfer-stream analog: serializes flushes of dirty arenas to the
+    device.  ``device`` is where the tensors go: CUDA unless the caller
+    names another device (the CPU)."""
+
+    def __init__(self, device: torch.device | str | None = None):
+        self.device = torch.device("cuda" if device is None else device)
+        self._lock = threading.Lock()
+
+    def flush(self, *arenas):
+        """Each ``BindlessBufferAllocator``'s field tensors on the device
+        (uploaded if dirty), as ``resource/arenas.py::device_arrays``."""
+        with self._lock:
+            return [device_arrays(arena, self.device) for arena in arenas]
 
 
 class MemoryAllocator:
@@ -48,3 +75,6 @@ class MemoryAllocator:
         self.texture_arena = TextureArena(
             budget_check=lambda n: ri.check_budget("textures", n)
         )
+        # the device of the memory info the allocator was given (the render
+        # device's), CUDA without one
+        self.upload_queue = UploadQueue(getattr(device, "device", None))

@@ -6,10 +6,12 @@ From a [1080, 1920] f32 depth buffer, padded with zeros to whole blocks of
 a block whose max exceeds 2.0 (``zmax_reduce``); maps 1 and 6 i32 filled
 with -1; the rest f32 zeros.  These are K3's stores with nothing resolved:
 the floor of its output traffic.  ``rows`` keeps its meaning (16/32/64/128
-rows of the frame per block); a block's max is a shared-memory reduction.
+rows of the frame per block, at most ``MAX_ROWS``).
 
 Kernel: ``csrc/probes.cu`` ``fixed_grid_kernel``, bit-equal to
-``fixed_grid_reference``.
+``fixed_grid_reference``: a CTA a block, a warp along a block row in
+16-byte loads and stores, the depth read once and held in registers, the
+block's max by one barrier.
 
     python3 -m tyleri_tpu_torch.tools.exp_fixed_grid [--device cpu]
 """
@@ -27,6 +29,8 @@ from tyleri_tpu_torch.tools import _common
 FB_W, FB_H = 1920, 1080
 TILE_W = 128
 INT_MAPS = (1, 6)
+# the kernel's most rows a block: 32 warps of 8 rows (csrc/probes.cu)
+MAX_ROWS = 256
 
 launches = {"fixed_grid": 0}
 
@@ -67,7 +71,10 @@ def fixed_grid(depth: torch.Tensor, rows: int, nouts: int = 7,
             or not depth.is_contiguous()):
         raise ValueError(f"fixed_grid: depth must be a contiguous f32 "
                          f"[{FB_H}, {FB_W}]")
-    if not (0 < rows and 1 <= nouts <= 7):
+    if depth.data_ptr() % 16:
+        raise ValueError("fixed_grid: depth must be 16-byte aligned (the "
+                         "kernel reads it as float4)")
+    if not (0 < rows <= MAX_ROWS and 1 <= nouts <= 7):
         raise ValueError(f"fixed_grid: rows {rows}, nouts {nouts}")
     shape = padded_shape(rows)
     maps = [torch.empty(shape, device=dev, dtype=torch.int32
