@@ -1692,6 +1692,15 @@ def entry_ids(table, entries):
     return ids
 
 
+def poisoned(n, device, call):
+    """``call()`` after NaN filled the n blocks of 1088 x 1920 f32 that the
+    allocator hands out next: a pixel the kernel misses stays NaN."""
+    blocks = [torch.full((1088, 1920), float("nan"), device=device)
+              for _ in range(n)]
+    del blocks
+    return call()
+
+
 def check_bit_equal(what, got, want) -> float:
     """Fails unless every output equals its plain version bit for bit;
     returns their max_abs_err."""
@@ -1785,20 +1794,23 @@ def phase_probes(device, card, records, launches, sponza_gather, reps=20,
     plain_ms["fixed_grid"] = cuda_ms(
         lambda: exp_fixed_grid.fixed_grid_reference(depth, 16), 5)
 
-    # P6
+    # P6: the tool's variants, segments from row 3, and tile starts in no
+    # order on a short table (a CTA's tiles take 0 to 8 trips, bases in its
+    # short last chunk) at every map count; each output NaN before the call
     table, tiny, depth0, ts_empty = exp_fixedcost.tool_inputs(device)
-    rng = np.random.default_rng(5)
-    lens = rng.integers(0, 300, ts_empty.numel() - 1) * (
-        rng.random(ts_empty.numel() - 1) < 0.7)
-    ts_seg = torch.from_numpy(np.concatenate([[3], 3 + np.cumsum(lens)])
-                              .astype(np.int32)).to(device)
+    ts_seg = exp_fixedcost.segment_starts(device)
+    short = table[:exp_fixedcost.SHORT_E].contiguous()
+    p6_cases = [(table, ts_empty, 7), (tiny, ts_empty, 1), (tiny, ts_empty, 3),
+                (table, ts_seg, 7),
+                *((short, exp_fixedcost.jumbled_starts(device, seed=n), n)
+                  for n in range(1, 8))]
     err["fixed_cost"] = max(
-        check_bit_equal("fixed_cost",
-                        exp_fixedcost.fixed_cost(tab, ts, depth0, n_out=n_out),
-                        exp_fixedcost.fixed_cost_reference(tab, ts, depth0,
-                                                           n_out=n_out))
-        for tab, ts, n_out in ((table, ts_empty, 7), (tiny, ts_empty, 1),
-                               (table, ts_seg, 7)))
+        check_bit_equal(
+            "fixed_cost",
+            poisoned(n_out, device, lambda: exp_fixedcost.fixed_cost(
+                tab, ts, depth0, n_out=n_out)),
+            exp_fixedcost.fixed_cost_reference(tab, ts, depth0, n_out=n_out))
+        for tab, ts, n_out in p6_cases)
     plain_ms["fixed_cost"] = cuda_ms(lambda: exp_fixedcost.fixed_cost_reference(
         table, ts_empty, depth0, n_out=7), 5)
     # the tool's shapes, and one whose rows take the scalar ends
@@ -1809,18 +1821,28 @@ def phase_probes(device, card, records, launches, sponza_gather, reps=20,
     shape = exp_fixedcost.LAUNCH_VARIANTS["launch_68x15_16x128"]
     plain_ms["fill"] = cuda_ms(
         lambda: exp_fixedcost.fill_reference(*shape, device), 20)
-    del table, tiny, ts_seg
+    del table, tiny, short, ts_seg, p6_cases
 
-    # P1
+    # P1: the tool's variants, then tile starts in no order on a short
+    # table (0 to 16 trips a tile, windows clamped at its end) at tpp 1, 4
+    # and 17 (16 tile rows side by side, one lane with a second row); each
+    # output NaN before the call
     entries, ts_zero, ts_one = exp_pipecost.tool_inputs(device)
-    err["pipe_cost"] = 0.0
-    for name, kw in exp_pipecost.VARIANTS.items():
-        ts = ts_one if kw["ts"] == "one" else ts_zero
-        args = dict(nout=kw["nout"], level=kw["level"])
-        err["pipe_cost"] = max(err["pipe_cost"], check_bit_equal(
-            f"pipe_cost {name}",
-            exp_pipecost.run(entries, ts, tpp=kw["tpp"], **args),
-            exp_pipecost.pipe_cost_reference(entries, ts, **args)))
+    short = entries[:exp_pipecost.SHORT_E].contiguous()
+    p1_cases = [(f"pipe_cost {name}", entries,
+                 ts_one if kw["ts"] == "one" else ts_zero, kw["tpp"],
+                 dict(nout=kw["nout"], level=kw["level"]))
+                for name, kw in exp_pipecost.VARIANTS.items()]
+    p1_cases += [(f"pipe_cost jumbled tpp {tpp}", short,
+                  exp_pipecost.jumbled_starts(device, seed=tpp), tpp,
+                  dict(nout=7, level=2)) for tpp in (1, 4, 17)]
+    err["pipe_cost"] = max(
+        check_bit_equal(
+            what, poisoned(args["nout"], device, lambda: exp_pipecost.run(
+                ent, ts, tpp=tpp, **args)),
+            exp_pipecost.pipe_cost_reference(ent, ts, **args))
+        for what, ent, ts, tpp, args in p1_cases)
+    del short, p1_cases
     plain_ms["pipe_cost"] = cuda_ms(lambda: exp_pipecost.pipe_cost_reference(
         entries, ts_one, nout=7, level=2), 2)
 
@@ -1899,6 +1921,11 @@ def phase_probes(device, card, records, launches, sponza_gather, reps=20,
             f"{r['ms']:.4f} ms by CUDA graph, plain {plain_ms[name]:.4f} ms; "
             f"{share(records[name])}; {r['ms'] / k3_ms:.1%} of K3's "
             f"{k3_ms:.4f} ms by CUDA graph on the sponza table")
+    r = timed[("exp_pipecost", "v_loop1")]
+    log("probes", f"P1 v_loop1 stages {r['staged_bytes']} bytes of windows "
+        f"beside its bound's {r['bytes']}: their floor "
+        f"{r['staged_floor_ms']:.4f} ms, {r['staged_floor_ms'] / r['ms']:.1%}"
+        f" of its time")
     log("probes", f"K3's floor (its launch on the empty table) "
         f"{records['k3_floor_ms']:.4f} ms by CUDA graph, beside P7 "
         f"{records['fixed_grid']['ms']:.4f}, P6 {records['fixed_cost']['ms']:.4f}"

@@ -513,26 +513,65 @@ def test_fixed_grid_rejects_what_the_kernel_does_not_take(cuda_device):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("case,n_out", [("empty", 7), ("segments", 7),
-                                        ("segments", 1)])
+def poison(n, shape, device):
+    """NaN in the n blocks of ``shape`` the allocator hands out next: a
+    pixel a kernel misses stays NaN."""
+    blocks = [torch.full(shape, float("nan"), device=device)
+              for _ in range(n)]
+    del blocks
+
+
+@pytest.mark.parametrize("n_out", range(1, 8))
+@pytest.mark.parametrize("case", ["empty", "segments", "jumbled"])
 def test_fixed_cost_bit_equal(cuda_device, case, n_out):
+    """empty: the tool's segments; segments: 70 % of the tiles 1 to 299
+    rows from row 3; jumbled: starts in no order on a 1,000-row table, so
+    a CTA's tiles take 0 to 8 trips and bases in the last chunk copy its
+    104 rows."""
     from tyleri_tpu_torch.tools import exp_fixedcost
 
     table, _, depth0, ts = exp_fixedcost.tool_inputs(cuda_device, seed=5)
     if case == "segments":
-        rng = np.random.default_rng(5)
-        lens = rng.integers(0, 300, ts.numel() - 1) * (
-            rng.random(ts.numel() - 1) < 0.7)
-        ts = torch.from_numpy(np.concatenate([[3], 3 + np.cumsum(lens)])
-                              .astype(np.int32)).to(cuda_device)
+        ts = exp_fixedcost.segment_starts(cuda_device)
+    elif case == "jumbled":
+        table = table[:exp_fixedcost.SHORT_E].contiguous()
+        ts = exp_fixedcost.jumbled_starts(cuda_device, seed=n_out)
     depth0 = torch.rand(depth0.shape, device=cuda_device)
+    poison(n_out, (1088, 1920), cuda_device)
+    exp_fixedcost.reset_launches()
     got = exp_fixedcost.fixed_cost(table, ts, depth0, n_out=n_out)
     want = exp_fixedcost.fixed_cost_reference(table, ts, depth0, n_out=n_out)
+    torch.cuda.synchronize()
+    assert exp_fixedcost.launches["fixed_cost"] == 1
     for g, w in zip(got, want, strict=True):
-        assert torch.equal(g, w)
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
     for shape in exp_fixedcost.LAUNCH_VARIANTS.values():
         assert torch.equal(exp_fixedcost.fill(*shape, cuda_device),
                            exp_fixedcost.fill_reference(*shape, cuda_device))
+
+
+def test_fixed_cost_rejects_what_the_kernel_does_not_take(cuda_device):
+    """Table or depth views off the 16-byte grid, and rows of a width that
+    is no multiple of 4, raise before any launch."""
+    from tyleri_tpu_torch.tools import exp_fixedcost
+
+    table = torch.rand((1024, 24), device=cuda_device)
+    depth0 = torch.rand((1080, 1920), device=cuda_device)
+    ts = exp_fixedcost.jumbled_starts(cuda_device, E=1000)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, device=cuda_device)[1:].view(
+            t.shape)
+        return out.copy_(t)
+
+    exp_fixedcost.reset_launches()
+    for args, match in (((shifted(table), ts, depth0), "aligned"),
+                        ((table, ts, shifted(depth0)), "aligned"),
+                        ((table[:, :22].contiguous(), ts, depth0),
+                         "multiple of 4")):
+        with pytest.raises(ValueError, match=match):
+            exp_fixedcost.fixed_cost(*args, n_out=3)
+    assert exp_fixedcost.launches["fixed_cost"] == 0
 
 
 @pytest.mark.parametrize("shape", [
@@ -559,23 +598,56 @@ def test_fill_bit_equal_at_odd_shapes(cuda_device, shape):
 
 @pytest.mark.parametrize("level,nout,kind,tpp", [
     (0, 7, "zero", 1), (1, 7, "zero", 4), (2, 7, "zero", 1),
-    (2, 7, "one", 1), (2, 3, "many", 4), (2, 1, "many", 1)])
+    (2, 7, "one", 1), (2, 3, "many", 4), (2, 1, "many", 1),
+    *((0, n, "zero", 1) for n in range(1, 7)),
+    *((2, n, "jumbled", 1) for n in range(1, 8)),
+    (2, 7, "jumbled", 4), (2, 7, "many", 4), (2, 7, "one", 4),
+    (2, 7, "jumbled", 17), (2, 3, "one", 68), (0, 7, "zero", 68),
+    (1, 2, "zero", 17)])
 def test_pipe_cost_bit_equal(cuda_device, level, nout, kind, tpp):
+    """many: 0 to 4 trips a tile, the tiles past the table empty and the
+    window across its end clamped; jumbled: starts in no order on a
+    1,000-row table, so a CTA's tiles take 0 to 16 trips and every window
+    past it clamps at e_cap - 64.  tpp 17 and 68 put 16 tile rows side by
+    side, some lanes with a row more than others."""
     from tyleri_tpu_torch.tools import exp_pipecost
 
     entries, ts_zero, ts_one = exp_pipecost.tool_inputs(cuda_device, seed=7)
     ts = {"zero": ts_zero, "one": ts_one}.get(kind)
-    if ts is None:   # 0 to 4 chunks, windows clamped at the table's end
+    if kind == "many":
         rng = np.random.default_rng(7)
         lens = rng.integers(0, 256, ts_zero.numel() - 1)
         ts = torch.from_numpy(np.minimum(np.concatenate(
             [[0], np.cumsum(lens)]), entries.shape[0]).astype(np.int32)
         ).to(cuda_device)
+    elif kind == "jumbled":
+        entries = entries[:exp_pipecost.SHORT_E].contiguous()
+        ts = exp_pipecost.jumbled_starts(cuda_device, seed=nout)
+    poison(nout, (1088, 1920), cuda_device)
+    exp_pipecost.reset_launches()
     got = exp_pipecost.run(entries, ts, nout=nout, level=level, tpp=tpp)
     want = exp_pipecost.pipe_cost_reference(entries, ts, nout=nout,
                                             level=level)
+    torch.cuda.synchronize()
+    assert exp_pipecost.launches["pipe_cost"] == 1
     for g, w in zip(got, want, strict=True):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_pipe_cost_rejects_what_the_kernel_does_not_take(cuda_device):
+    """An entry view off the 16-byte grid, rows of a width that is no
+    multiple of 4, and fewer rows than a window raise before any launch."""
+    from tyleri_tpu_torch.tools import exp_pipecost
+
+    entries, ts, _ = exp_pipecost.tool_inputs(cuda_device)
+    entries = entries[:1024]
+    shifted = torch.empty(entries.numel() + 1, device=cuda_device)[1:].view(
+        entries.shape).copy_(entries)
+    exp_pipecost.reset_launches()
+    for ent in (shifted, entries[:, :22].contiguous(), entries[:63]):
+        with pytest.raises(ValueError, match="aligned"):
+            exp_pipecost.run(ent, ts, nout=7, level=2)
+    assert exp_pipecost.launches["pipe_cost"] == 0
 
 
 # ---- P3, P2, P5 (csrc/probes_visibility.cu, probes_mxu.cu, probes.cu) ----

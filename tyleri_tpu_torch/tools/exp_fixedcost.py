@@ -18,8 +18,10 @@ probe's jit does: per-launch against per-block against per-pixel cost.  The
 tool times ``torch.ones`` of the same shape beside the fill kernel, in turns
 (library, fill, fill, library), as the library call that computes it.
 
-Kernels: ``csrc/probes.cu`` ``fixed_cost_kernel`` and ``fill_kernel``,
-bit-equal to ``fixed_cost_reference`` and ``fill_reference``.
+Kernels: ``csrc/probes.cu`` ``fixed_cost_kernel`` (16-byte loads and
+stores along the frame's rows, each trip's chunk one bulk copy) and
+``fill_kernel``, bit-equal to ``fixed_cost_reference`` and
+``fill_reference``.
 
     python3 -m tyleri_tpu_torch.tools.exp_fixedcost [--device cpu]
 """
@@ -35,7 +37,7 @@ from tyleri_tpu_torch import _build
 from tyleri_tpu_torch.tools import _common
 
 FB_W, FB_H = 1920, 1080
-TILE = 16                      # the kernel's tiles: 16x16, a pixel a thread
+TILE = 16                      # the kernel's tiles: 16x16, as K3
 CHUNK = 128                    # the TPU probe's chunk rows
 E_FULL = 1_179_648             # sponza's entry capacity scale
 NUM_CHANNELS = 24
@@ -79,18 +81,13 @@ def fixed_cost_reference(table, tile_start, depth0, *, n_out: int,
     return [s0] + [s.clone() for _ in range(n_out - 1)]
 
 
-def fixed_cost(table, tile_start, depth0, *, n_out: int
-               ) -> list[torch.Tensor]:
-    """The maps of ``fixed_cost_reference`` at 16x16 tiles and chunks of
-    ``CHUNK`` rows: the kernel for
-    CUDA tensors (table f32 [E, C], tile_start i32 [8161] with segments
-    inside the table, depth0 f32 [1080, 1920]), the plain version for CPU
-    ones."""
+def check_kernel_inputs(table, tile_start, depth0, n_out: int) -> None:
+    """Raises ValueError on what the kernel does not take: table f32
+    [E, C] with C a multiple of 4, tile_start i32 [8161], depth0 f32
+    [1080, 1920], all contiguous on one device, the table and the depth
+    16-byte aligned (the kernel copies chunks of the table in bulk and
+    reads the depth in 16-byte loads)."""
     dev = table.device
-    if dev.type == "cpu":
-        return fixed_cost_reference(table, tile_start, depth0, n_out=n_out)
-    if dev.type != "cuda":
-        raise ValueError(f"fixed_cost: unsupported device {dev}")
     grid_h, grid_w = grid_of(TILE, TILE)
     for name, t, dt, shape in (
             ("table", table, torch.float32, (table.shape[0], table.shape[-1])),
@@ -100,8 +97,28 @@ def fixed_cost(table, tile_start, depth0, *, n_out: int
                 or not t.is_contiguous()):
             raise ValueError(f"fixed_cost: {name} must be a contiguous {dt} "
                              f"{shape} on {dev}")
+    if table.shape[1] % 4:
+        raise ValueError(f"fixed_cost: table rows must be a multiple of 4 "
+                         f"floats, got {tuple(table.shape)}")
+    for name, t in (("table", table), ("depth0", depth0)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fixed_cost: {name} must be 16-byte aligned")
     if not 1 <= n_out <= 7:
         raise ValueError(f"fixed_cost: n_out {n_out}")
+
+
+def fixed_cost(table, tile_start, depth0, *, n_out: int
+               ) -> list[torch.Tensor]:
+    """The maps of ``fixed_cost_reference`` at 16x16 tiles and chunks of
+    ``CHUNK`` rows: the kernel for CUDA tensors (``check_kernel_inputs``;
+    segments inside the table), the plain version for CPU ones."""
+    dev = table.device
+    if dev.type == "cpu":
+        return fixed_cost_reference(table, tile_start, depth0, n_out=n_out)
+    if dev.type != "cuda":
+        raise ValueError(f"fixed_cost: unsupported device {dev}")
+    check_kernel_inputs(table, tile_start, depth0, n_out)
+    grid_h, grid_w = grid_of(TILE, TILE)
     maps = [torch.empty((grid_h * TILE, grid_w * TILE), device=dev)
             for _ in range(n_out)]
     lib = _build.load()
@@ -170,6 +187,31 @@ def tool_inputs(device, seed=0):
     ts_empty = torch.zeros((grid_h * grid_w + 1,), dtype=torch.int32,
                            device=device)
     return table, table[:CHUNK].contiguous(), depth0, ts_empty
+
+
+def segment_starts(device, seed=5) -> torch.Tensor:
+    """i32 [8161]: 70 % of the tiles hold 1 to 299 rows, the rest none,
+    from row 3 on (starts off the chunk grid), inside the full table."""
+    rng = np.random.default_rng(seed)
+    grid_h, grid_w = grid_of(TILE, TILE)
+    n = grid_h * grid_w
+    lens = rng.integers(0, 300, n) * (rng.random(n) < 0.7)
+    return torch.from_numpy(np.concatenate([[3], 3 + np.cumsum(lens)])
+                            .astype(np.int32)).to(device)
+
+
+SHORT_E = 1000   # 7 chunks and a short one of 104 rows
+
+
+def jumbled_starts(device, E=SHORT_E, seed=0) -> torch.Tensor:
+    """i32 [8161] in no order, each in [0, E]: a tile's segment [ts[t],
+    ts[t + 1]) is empty where ts[t + 1] <= ts[t], so the tiles of a CTA
+    take different trip counts, some none; starts lie off the chunk grid,
+    and bases in the last chunk copy the E % 128 rows up to E."""
+    rng = np.random.default_rng(seed)
+    grid_h, grid_w = grid_of(TILE, TILE)
+    return torch.from_numpy(rng.integers(0, E + 1, grid_h * grid_w + 1)
+                            .astype(np.int32)).to(device)
 
 
 VARIANTS = {

@@ -13,10 +13,12 @@ blocks) the kernel writes ``nout`` f32 maps, stripped to a level:
   1 outside), c0 the chunk's first scalar, chunk rows at
   ``min(start + k * chunk, e_cap - chunk)``.
 
-The kernel (``csrc/probes.cu`` ``pipe_cost_kernel<LEVEL, NOUT>``) takes the
-port's 16x16 tiles, ``tpb`` tile rows per block (the tool's ``tpp``), and
-the port's K3 chunk: 64 rows of 24 f32, double-buffered in shared memory
-with ``cp.async`` (not the TPU's 128 x 128 f32 entry buffer).  It is
+The kernel (``csrc/probes.cu`` ``pipe_cost_kernel``) takes the port's 16x16
+tiles, ``tpb`` tile rows per CTA (the tool's ``tpp``), and the port's K3
+chunk: 64 rows of 24 f32, double-buffered in shared memory, each window
+one bulk copy (not the TPU's 128 x 128 f32 entry buffer).  Each line also
+gives ``staged_bytes``, the windows the probe copies beside its bound, and
+``staged_floor_ms``, the least time of the bound's bytes and those.  It is
 bit-equal to ``pipe_cost_reference``, which takes any tile shape, so it can
 also read a tile-start table laid out for the TPU's 16 x 128 tiles.  Maps
 come back in the tool's layout, [68, 15, 16, 128] per map (views of the
@@ -86,18 +88,14 @@ def pipe_cost_reference(entries, tile_start, *, nout: int, level: int,
     return [tool_layout(s) for s in state[:nout]]
 
 
-def run(entries, tile_start, *, nout: int, level: int,
-        tpp: int = 1) -> list[torch.Tensor]:
-    """The maps of ``pipe_cost_reference`` at 16x16 tiles (tile_start i32
-    [8161]) and chunks of ``CHUNK`` rows: the kernel for CUDA tensors
-    (entries f32 [E, C], C a multiple of 4, contiguous), ``tpp`` tile rows
-    per block; the plain version for CPU ones."""
+def check_kernel_inputs(entries, tile_start, *, nout: int, level: int,
+                        tpp: int = 1) -> None:
+    """Raises ValueError on what the kernel does not take: entries f32
+    [E, C], C a multiple of 4, E >= ``CHUNK``, contiguous and 16-byte
+    aligned (each window is one bulk copy of 64 rows), tile_start i32
+    [8161] on the same device, 1 <= nout <= 7, level 0, 1 or 2, and
+    ``tpp`` tile rows per CTA dividing the frame's 68."""
     dev = entries.device
-    if dev.type == "cpu":
-        return pipe_cost_reference(entries, tile_start, nout=nout,
-                                   level=level)
-    if dev.type != "cuda":
-        raise ValueError(f"pipe_cost: unsupported device {dev}")
     ntiles = (FRAME_H // TILE) * (FRAME_W // TILE)
     if (entries.dtype != torch.float32 or entries.dim() != 2
             or entries.shape[1] % 4 or not entries.is_contiguous()
@@ -112,6 +110,21 @@ def run(entries, tile_start, *, nout: int, level: int,
     if not (1 <= nout <= NSTATE and level in (0, 1, 2) and tpp > 0
             and (FRAME_H // TILE) % tpp == 0):
         raise ValueError(f"pipe_cost: nout {nout}, level {level}, tpp {tpp}")
+
+
+def run(entries, tile_start, *, nout: int, level: int,
+        tpp: int = 1) -> list[torch.Tensor]:
+    """The maps of ``pipe_cost_reference`` at 16x16 tiles (tile_start i32
+    [8161]) and chunks of ``CHUNK`` rows: the kernel for CUDA tensors
+    (``check_kernel_inputs``), ``tpp`` tile rows per CTA; the plain version
+    for CPU ones."""
+    dev = entries.device
+    if dev.type == "cpu":
+        return pipe_cost_reference(entries, tile_start, nout=nout,
+                                   level=level)
+    if dev.type != "cuda":
+        raise ValueError(f"pipe_cost: unsupported device {dev}")
+    check_kernel_inputs(entries, tile_start, nout=nout, level=level, tpp=tpp)
     maps = [torch.empty((FRAME_H, FRAME_W), device=dev) for _ in range(nout)]
     lib = _build.load()
     launches["pipe_cost"] += 1
@@ -124,17 +137,34 @@ def run(entries, tile_start, *, nout: int, level: int,
     return [tool_layout(m) for m in maps]
 
 
+def chunks_of(tile_start) -> torch.Tensor:
+    """Each 16x16 tile's chunk count."""
+    start, end = tile_start[:-1].long(), tile_start[1:].long()
+    return torch.where(end > start, -(-(end - start) // CHUNK), 0)
+
+
 def pipe_cost_bound(tile_start, nout: int, level: int) -> dict:
     """The maps written once, the tile starts and each chunk's first scalar
     read once (level 2); five operations per pixel, map and chunk."""
     nbytes = 4 * nout * FRAME_H * FRAME_W
     nops = 0
     if level == 2:
-        start, end = tile_start[:-1].long(), tile_start[1:].long()
-        nchunks = torch.where(end > start, -(-(end - start) // CHUNK), 0)
-        nbytes += 4 * (tile_start.numel() + int(nchunks.sum()))
-        nops = 5 * NSTATE * TILE * TILE * int(nchunks.sum())
+        nchunks = int(chunks_of(tile_start).sum())
+        nbytes += 4 * (tile_start.numel() + nchunks)
+        nops = 5 * NSTATE * TILE * TILE * nchunks
     return _common.bound(nbytes, nops)
+
+
+def staged(tile_start, nout: int, level: int, channels: int = NUM_CHANNELS
+           ) -> dict:
+    """What the probe stages beside its bound: every chunk's window of
+    ``CHUNK`` x ``channels`` f32 (level 2), and the floor that the bound's
+    bytes plus those set at the card's memory rate."""
+    nbytes = 4 * CHUNK * channels * int(chunks_of(tile_start).sum()) \
+        if level == 2 else 0
+    total = pipe_cost_bound(tile_start, nout, level)["bytes"] + nbytes
+    return dict(staged_bytes=nbytes,
+                staged_floor_ms=total / _common.HBM_BYTES_PER_S * 1e3)
 
 
 def tool_inputs(device, seed=0):
@@ -148,6 +178,20 @@ def tool_inputs(device, seed=0):
     ts_one = torch.clamp(torch.arange(ntiles + 1, device=device) * CHUNK,
                          max=E_CAP).to(torch.int32)
     return entries, ts_zero, ts_one
+
+
+SHORT_E = 1000   # a table of 15 windows and a clamped last one
+
+
+def jumbled_starts(device, e_cap=SHORT_E, seed=0) -> torch.Tensor:
+    """i32 [8161] in no order, each in [0, e_cap]: a tile's segment is
+    empty where ts[t + 1] <= ts[t], so neighbouring tiles take 0 to 16
+    trips, and every window that would run past the table clamps at
+    ``e_cap - CHUNK``."""
+    rng = np.random.default_rng(seed)
+    ntiles = (FRAME_H // TILE) * (FRAME_W // TILE)
+    return torch.from_numpy(rng.integers(0, e_cap + 1, ntiles + 1)
+                            .astype(np.int32)).to(device)
 
 
 VARIANTS = {
@@ -170,7 +214,9 @@ def run_variants(device: torch.device, reps: int, card=None) -> list[dict]:
         t = _common.timing(lambda: run(entries, ts, tpp=kw["tpp"], **args),
                            device, reps)
         out.append(_common.emit("exp_pipecost", name, device, card, **t,
-                                **pipe_cost_bound(ts, **args)))
+                                **pipe_cost_bound(ts, **args),
+                                **staged(ts, **args,
+                                         channels=entries.shape[1])))
     return out
 
 
