@@ -88,9 +88,25 @@ Phases, one printed line each or more; any failure exits non-zero:
    to 1x4 with one message a rank; K1+K2 and K3 peel2 bit-equal to their
    plain versions on the 270-row band below the first that the frame
    covers most; bit-equal on one card likewise and within 0.2 % of the
-   single-card peel2 frame.
+   single-card peel2 frame;
+15. host-io: (a) config 2 at 800x600 through RenderWindow with a PNG
+   present target (utils/image.py's write_png on the native encoder, which
+   must have built): every presented frame written, the last read back
+   equal to latest_image; config 5's 1080p frame from phase 9 encoded by
+   the native encoder and by the python zlib path, both read back equal,
+   their times and whether their bytes are equal; (b) the device's
+   pipeline cache as bytes (the kernel library, its ptxas report and the
+   host runtime), seeded into a new process
+   (tyleri_tpu_torch.testing.seeded_frame) that must load both libraries
+   from its seeded directory with no nvcc and no g++ build and render a
+   config-2 frame equal to this process's; its seconds from spawn to the
+   first presented frame beside phase 2's build seconds; (c) a
+   torch.profiler trace (utils/profiling.trace) of three config-2 frames,
+   each under annotate("frame"): the trace file must hold the three ranges
+   and the CUDA kernel events of K1+K2 and K3 peel2, which the nvcc-built
+   library launches through ctypes.
 
-Every path (7 to 14 and the counter's measurement in 5) runs with the
+Every path (7 to 15 and the counter's measurement in 5) runs with the
 kernels' launch counts set to 0 just before it and read just after.  Each
 kernel's bound is the largest of its bytes (each input read once, each
 output written once, what this run's data needs) over 3.35 TB/s, its f32
@@ -1935,6 +1951,167 @@ def phase_probes(device, card, records, launches, sponza_gather, reps=20,
             in PROBES]
 
 
+HOST_IO_TIMES = (0.9, 0.6, 0.3)   # phase 15's config-2 frames
+
+
+def kernel_base_names(resources, names) -> list[str]:
+    """The kernel function names, without templates, of the kernels line's
+    ``names`` in ptxas's report (as CUPTI's kernel events carry them)."""
+    syms = [s.split("::")[-1] for s in resources]
+    found = []
+    for name in names:
+        bases = {s.split("<")[0] for s in syms
+                 if s.startswith(KERNEL_SYMBOLS[name])}
+        if len(bases) != 1:
+            raise AssertionError(f"{name}: kernel names {bases} in ptxas's "
+                                 "report")
+        found += bases
+    return found
+
+
+def phase_host_io(build_device, launches, card, resources, build_s, compiled,
+                  image_1080, res=(800, 600)):
+    """Phase 15: the PNG present target, the pipeline cache and the
+    profiler's trace on the card."""
+    import glob
+    import io
+    import os
+    import tempfile
+    import zipfile
+
+    import tyleri_tpu_torch as tt
+    from tyleri_tpu_torch import _build, native
+    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
+    from tyleri_tpu_torch.testing import seeded_frame
+    from tyleri_tpu_torch.utils import image
+    from tyleri_tpu_torch.utils.profiling import annotate, trace
+
+    if not native.available():
+        raise AssertionError(f"native host runtime: {native.build_error()}")
+    setup_cuda.reset_launches()
+    raster_cuda.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) every presented frame written by write_png's native encoder
+        encode = native.png_encode
+        encodes, paths = [0], []
+
+        def counted(rgba):
+            encodes[0] += 1
+            return encode(rgba)
+
+        def present(img):
+            paths.append(os.path.join(tmp, f"frame{len(paths)}.png"))
+            image.write_png(paths[-1], img)
+
+        dev = build_device()
+        rig = tt.scenes.config2_cube(dev, res)
+        win = tt.RenderWindow(dev, resolution=res, present_mode="immediate",
+                              present_target=present)
+        native.png_encode = counted
+        try:
+            render_frames(win, rig, HOST_IO_TIMES)
+        finally:
+            native.png_encode = encode
+        if len(paths) != len(HOST_IO_TIMES) or encodes[0] != len(paths):
+            raise AssertionError(f"{len(paths)} frames written, {encodes[0]} "
+                                 "by the native encoder")
+        if not np.array_equal(image.read_png(paths[-1]), win.latest_image):
+            raise AssertionError("the last PNG differs from latest_image")
+        first = image.read_png(paths[0])
+        log("host-io", f"config 2 {res[0]}x{res[1]}: {len(paths)} presented "
+            "frames written by the native encoder, the last read back equal "
+            "to latest_image")
+
+        # config 5's 1080p frame, native encoder against the python path
+        def timed_write(path):
+            best = float("inf")
+            for _ in range(3):
+                t = time.perf_counter()
+                image.write_png(path, image_1080)
+                best = min(best, time.perf_counter() - t)
+            with open(path, "rb") as f:
+                return best * 1e3, f.read()
+
+        native_ms, native_png = timed_write(os.path.join(tmp, "n.png"))
+        available = native.available
+        native.available = lambda: False
+        try:
+            python_ms, python_png = timed_write(os.path.join(tmp, "p.png"))
+        finally:
+            native.available = available
+        for which in ("n.png", "p.png"):
+            if not np.array_equal(image.read_png(os.path.join(tmp, which)),
+                                  image_1080):
+                raise AssertionError(f"{which}: the 1080p PNG reads back "
+                                     "another image")
+        h, w = image_1080.shape[:2]
+        log("host-io", f"config 5 {w}x{h} PNG: native {native_ms:.3f} ms "
+            f"({len(native_png)} B), python zlib {python_ms:.3f} ms "
+            f"({len(python_png)} B), bytes equal: "
+            f"{native_png == python_png} (best of 3, host clock; {card})")
+
+        # (b) a new process seeded from this device's pipeline cache
+        blob = dev.pipeline_cache.get_data()
+        names = zipfile.ZipFile(io.BytesIO(blob)).namelist()
+        lib = os.path.basename(_build.library_path())
+        if lib not in names or os.path.basename(
+                native.library_path()) not in names:
+            raise AssertionError(f"the cache's bytes hold {names}")
+        got = seeded_frame.run(blob, config=2, resolution=res)
+        if (got["compiles"], got["host_compiles"]) != (0, 0):
+            raise AssertionError(f"the seeded process built: {got}")
+        for key in ("library", "host_library"):
+            if not got[key].startswith(got["directory"] + os.sep):
+                raise AssertionError(f"{key} {got[key]} not in the seeded "
+                                     f"directory {got['directory']}")
+        if got["launches"]["fused_setup"] != 1 or \
+                got["launches"]["peel2"] != 1:
+            raise AssertionError(f"seeded frame launches {got['launches']}")
+        if got["image_sha256"] != seeded_frame.image_digest(first):
+            raise AssertionError("the seeded process's config-2 frame differs"
+                                 " from this process's")
+        log("host-io", f"pipeline cache: {len(blob)} B ({', '.join(names)}); "
+            f"seeded process: 0 nvcc and 0 g++ builds, device in "
+            f"{got['device_s']:.2f} s and first presented frame in "
+            f"{got['first_frame_s']:.2f} s from its spawn, its frame equal to"
+            f" this process's; phase 2 {'compiled' if compiled else 'loaded'}"
+            f" the kernels in {build_s:.1f} s ({card})")
+
+        # (c) a trace of three frames, each an annotated range
+        log_dir = os.path.join(tmp, "trace")
+        win = tt.RenderWindow(dev, resolution=res, present_mode="immediate")
+        with trace(log_dir):
+            for t in HOST_IO_TIMES:
+                with annotate("frame"):
+                    rig.fill(win.get_render_scene(), t)
+                    win.render()
+            win.flush()
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"trace files {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        frames = sum(e.get("cat") == "user_annotation"
+                     and e.get("name") == "frame" for e in events)
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        wanted = kernel_base_names(resources, (
+            "fused_setup", "rasterize_visibility_peel2"))
+        counts = {k: sum(k in name for name in kernels) for k in wanted}
+        if frames != len(HOST_IO_TIMES) or any(
+                c < len(HOST_IO_TIMES) for c in counts.values()):
+            raise AssertionError(f"trace: {frames} frame ranges, kernel "
+                                 f"events {counts} of {len(kernels)}")
+        log("host-io", f"trace: {frames} frame ranges, {len(kernels)} kernel "
+            f"events, of them {counts}")
+    launches["host-io"] = dict(raster_cuda.variant_launches,
+                               fused_setup=setup_cuda.launches)
+    want = 2 * len(HOST_IO_TIMES)
+    if (launches["host-io"]["fused_setup"], launches["host-io"]["peel2"]) \
+            != (want, want):
+        raise AssertionError(f"host-io launches {launches['host-io']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1952,8 +2129,9 @@ def main() -> int:
         f"{torch.version.cuda} | {kind}")
     t0 = time.perf_counter()
     _build.load()
-    log("build", f"kernels built and loaded in {time.perf_counter() - t0:.1f}"
-        f" s ({_build.library_path()})")
+    build_s, compiled = time.perf_counter() - t0, _build.compiles > 0
+    log("build", f"kernels {'built and ' if compiled else ''}loaded in "
+        f"{build_s:.1f} s ({_build.library_path()})")
     resources = _build.kernel_resources()
     log("build", "registers (spill-store bytes) by ptxas: " + "; ".join(
         f"{k} {r} ({s} B)" for k, (r, s) in sorted(resources.items())))
@@ -1990,6 +2168,7 @@ def main() -> int:
                     launches)
     sponza = phase("config5", phase_sponza, build_device, SPONZA_RES,
                    launches)
+    image_1080 = sponza[2].latest_image.copy()   # for phase 15's encode
     phase("ui", phase_ui, sponza, launches, SPONZA_RES)
     del sponza
     torch.cuda.empty_cache()
@@ -2001,6 +2180,9 @@ def main() -> int:
     del sponza_gather
     torch.cuda.empty_cache()
     phase("mesh", phase_mesh, build_device, launches, SPONZA_RES)
+    phase("host-io", phase_host_io, build_device, launches, card, resources,
+          build_s, compiled, image_1080)
+    del image_1080
 
     def path_sum(key):
         return sum(c.get(key, 0) for c in launches.values())

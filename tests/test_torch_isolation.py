@@ -166,14 +166,12 @@ def test_cpu_tensors_never_launch_kernels():
     assert (setup_cuda.launches, raster_cuda.launches()) == (0, 0)
 
 
-@pytest.mark.parametrize("what", ["mesh", "pipeline_cache",
-                                  "greater_on_visibility"])
+@pytest.mark.parametrize("what", ["mesh", "greater_on_visibility"])
 def test_unported_paths_raise(what):
     """What the port does not render says so instead of rendering
     something else: a device mesh that is not a (draws, tiles) DeviceMesh,
-    the pipeline-cache seed (no XLA compilation cache to seed), and GREATER
-    on the visibility path (the reference's own refusal; exact mode renders
-    it)."""
+    and GREATER on the visibility path (the reference's own refusal; exact
+    mode renders it)."""
     import dataclasses
 
     import tyleri_tpu_torch as tt
@@ -182,10 +180,6 @@ def test_unported_paths_raise(what):
     if what == "mesh":
         with pytest.raises(TypeError):
             tt.RenderWindow(dev, resolution=(32, 32), device_mesh=object())
-        return
-    if what == "pipeline_cache":
-        with pytest.raises(NotImplementedError):
-            tt.RenderDeviceBuilder().device("cpu").pipeline_cache_data(b"")
         return
     rig = tt.scenes.config1_triangle(dev, (32, 32))
     for exact in (False, True):

@@ -243,11 +243,6 @@ def test_anisotropy_reaches_the_plan(exact):
         assert rf.plan.raster.aniso_taps == taps
 
 
-def test_pipeline_cache_data_refuses_with_a_reason():
-    with pytest.raises(NotImplementedError, match="compilation cache"):
-        RenderDeviceBuilder().pipeline_cache_data(b"seed")
-
-
 def test_raster_plan_carries_exact_and_taps_from_jax():
     from tyleri_tpu.rendering.passes import RasterPlan as JaxPlan
     from tyleri_tpu_torch.interop import raster_plan_from_jax

@@ -3,11 +3,14 @@
 nvcc compiles every ``csrc/*.cu`` to an object, one nvcc per source, all
 started together, and links them into one shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers: the build takes seconds).
-The library lands in ``build/tyleri_tpu_torch/`` at the repository root,
-keyed by a hash of the sources, their headers (``csrc/*.cuh``) and the
-flags, and is built on the first kernel launch of a process, under a file
-lock, so that processes started together build it once.  A failed build
-raises; there is no fallback.
+The library lands in the build directory (``build_dir()``:
+``build/tyleri_tpu_torch/`` at the repository root unless a pipeline cache
+names another, ``device/pipeline_cache.py``), keyed by a hash of the
+sources, their headers (``csrc/*.cuh``) and the flags, and is built on the
+first kernel launch of a process, under a file lock, so that processes
+started together build it once.  A library found at the key's path is
+loaded and nvcc does not run; ``compiles`` counts the builds this process
+made.  A failed build raises; there is no fallback.
 
 Flags: ``-fmad=false`` keeps every multiply and add separately rounded, as
 eager PyTorch does, so each kernel is bit-equal to its plain version on the
@@ -39,6 +42,9 @@ NVCC_FLAGS = [
 
 _lib = None
 _lock = threading.Lock()
+_dir = BUILD_DIR
+compiles = 0        # nvcc builds of the library in this process
+loaded_path = None  # the library load() loaded
 
 
 def _nvcc() -> str:
@@ -56,14 +62,42 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
-def library_path() -> str:
-    """The library's path, keyed by the flags, the sources and the headers
-    they include."""
+def build_dir() -> str:
+    """The directory the kernel library and the host runtime (``native``)
+    are built into and loaded from.  Process-wide."""
+    return _dir
+
+
+def set_build_dir(directory: str) -> None:
+    """Point this process's builds and loads at ``directory`` (a pipeline
+    cache's).  A library already loaded stays loaded."""
+    global _dir
+    _dir = os.path.abspath(directory)
+
+
+def toolkit_release() -> str | None:
+    """The release line of ``nvcc --version`` ("Cuda compilation tools,
+    release 12.4, V12.4.131"), or None where no nvcc is found (then nothing
+    runs)."""
+    try:
+        nvcc = _nvcc()
+    except RuntimeError:
+        return None
+    out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                         check=True).stdout
+    lines = [line.strip() for line in out.splitlines() if "release" in line]
+    return lines[0] if lines else out.strip()
+
+
+def library_path(directory: str | None = None) -> str:
+    """The library's path in ``directory`` (default: ``build_dir()``), keyed
+    by the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(src, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libtyleri_kernels_{h.hexdigest()[:16]}.so")
+    return os.path.join(directory or _dir,
+                        f"libtyleri_kernels_{h.hexdigest()[:16]}.so")
 
 
 def report_path(lib_path: str | None = None) -> str:
@@ -77,13 +111,15 @@ def build() -> str:
     an exclusive lock on the build directory, the others wait for it and
     find the library.  The operating system releases the lock (``flock``)
     when its holder exits, so a build that was cut off leaves none behind."""
+    global compiles
     out = library_path()
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(os.path.join(os.path.dirname(out), "build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.exists(out):
+            compiles += 1
             _compile(out)
     return out
 
@@ -218,13 +254,24 @@ def _bind(lib) -> None:
 
 
 def load():
-    """The kernel library, built on first call."""
-    global _lib
+    """The kernel library, built on first call.  A library this process did
+    not build (a pipeline cache's seed) that fails to load is deleted and
+    built again, which ``compiles`` counts; one it built that fails raises."""
+    global _lib, loaded_path
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            before = compiles
+            path = build()
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError:
+                if compiles != before:
+                    raise
+                os.remove(path)
+                path = build()
+                lib = ctypes.CDLL(path)
             _bind(lib)
-            _lib = lib
+            _lib, loaded_path = lib, path
         return _lib
 
 

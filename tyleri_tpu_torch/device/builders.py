@@ -8,10 +8,10 @@ with ``.device("cpu")`` (the plain PyTorch versions of the kernels run
 there).  There is no silent fallback from the card to the CPU.
 
 The reference's configuration surface is kept: the application and engine
-names, the sampler's anisotropy, the windows the device must present to
-(checked in ``build()``), and the size of the dispatch-queue pool.  The
-pipeline-cache seed is not: the port compiles no XLA programs, so there is
-no compilation cache to seed.
+names, the sampler's anisotropy, the pipeline cache (a seed of compiled
+libraries, or a directory to build into: ``device/pipeline_cache.py``),
+the windows the device must present to (checked in ``build()``), and the
+size of the dispatch-queue pool.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import os
 import torch
 
 from tyleri_tpu_torch.device.debug import DebugMessenger, Severity
+from tyleri_tpu_torch.device.pipeline_cache import PipelineCache
 from tyleri_tpu_torch.pipeline.state import DepthFormat
 from tyleri_tpu_torch.device.render_device import RenderDevice
 
@@ -61,6 +62,8 @@ class RenderDeviceBuilder:
         self._device_id = None
         self._depth_format = DEFAULT_DEPTH_FORMAT
         self._anisotropy = None
+        self._pipeline_cache_seed = None
+        self._pipeline_cache_dir = None
         self._windows = []
         self._queue_pool_size = 4
 
@@ -102,10 +105,16 @@ class RenderDeviceBuilder:
         return self
 
     def pipeline_cache_data(self, data):
-        raise NotImplementedError(
-            "pipeline_cache_data seeds the JAX package's XLA compilation "
-            "cache; the port compiles no XLA programs, so it has no "
-            "compilation cache to seed")
+        """Seed the pipeline cache (ref: builders.rs:85-88,321-331): the
+        ``bytes`` of a previous device's ``pipeline_cache.get_data()``
+        (unpacked into a fresh directory), or a directory path that the
+        kernel library and the host runtime are built into and loaded
+        from."""
+        if isinstance(data, (bytes, bytearray)):
+            self._pipeline_cache_seed = bytes(data)
+        else:
+            self._pipeline_cache_dir = os.fspath(data)
+        return self
 
     def present_to(self, window_handle):
         """Register a window the device must present to; ``build()``
@@ -167,10 +176,13 @@ class RenderDeviceBuilder:
         if min_sev is None:
             # validation off: swallow everything
             messenger.emit = lambda *a, **k: None  # type: ignore[assignment]
+        cache = PipelineCache(self._pipeline_cache_dir,
+                              seed=self._pipeline_cache_seed)
         return RenderDevice(
             device,
             depth_format=self._depth_format,
             sampler_anisotropy=self._anisotropy,
+            pipeline_cache=cache,
             debug_messenger=messenger,
             queue_pool_size=self._queue_pool_size,
         )

@@ -3,7 +3,8 @@
 
 Holds the ``torch.device`` every tensor of the frame path lives on, the
 memory allocator (numpy geometry and texture arenas), the depth format, the
-sampler's anisotropy, the debug messenger and a pool of dispatch queues
+sampler's anisotropy, the pipeline cache, the debug messenger and a pool of
+dispatch queues
 (the ``SegQueue<ParallelRecordingQueue>`` analog, ref:
 render_device.rs:19).  The batch upload API
 (create_vertices / create_indices / create_textures, ref:
@@ -23,6 +24,7 @@ import torch
 
 from tyleri_tpu_torch.device import debug
 from tyleri_tpu_torch.device.debug import DebugMessenger
+from tyleri_tpu_torch.device.pipeline_cache import PipelineCache
 from tyleri_tpu_torch.pipeline.state import DepthFormat
 from tyleri_tpu_torch.resource.allocator import MemoryAllocator
 
@@ -122,6 +124,7 @@ class RenderDevice:
         *,
         depth_format: DepthFormat = DepthFormat.D16_UNORM,
         sampler_anisotropy: float | None = None,
+        pipeline_cache: PipelineCache | None = None,
         debug_messenger: DebugMessenger | None = None,
         queue_pool_size: int = 4,
     ):
@@ -131,6 +134,7 @@ class RenderDevice:
         # engages the footprint-filtered deferred shade
         # (ops/sampling.py::sample_anisotropic); exact mode stays bilinear
         self.sampler_anisotropy = sampler_anisotropy
+        self.pipeline_cache = pipeline_cache or PipelineCache()
         self.debug_messenger = debug_messenger or DebugMessenger()
         if sampler_anisotropy:
             self.debug_messenger.emit(

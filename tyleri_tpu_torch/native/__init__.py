@@ -1,10 +1,14 @@
 """Native host runtime: ctypes bindings to host_runtime.cpp.
 
-The port's copy of ``tyleri_tpu/native/__init__.py``, without the PNG
-encoder.  g++ builds the shared library on first use into
-``build/tyleri_tpu_torch/`` at the repository root (listed in
-``.gitignore``), keyed by a hash of the source.  Every native component has
-a pure-python fallback, so ``available()`` failing never breaks the port.
+The port's copy of ``tyleri_tpu/native/__init__.py``.  g++ builds the
+shared library on first use into the build directory the kernel library
+uses (``_build.build_dir()``: ``build/tyleri_tpu_torch/`` at the repository
+root, listed in ``.gitignore``, unless a pipeline cache names another),
+keyed by a hash of the flags and the source; ``compiles`` counts the builds
+this process made.  The PNG encoder links zlib, so g++ must find
+``zlib.h``; ``build_error()`` says why a build failed.  Every native
+component has a pure-python fallback, so ``available()`` failing never
+breaks the port.
 """
 
 from __future__ import annotations
@@ -15,27 +19,43 @@ import os
 import subprocess
 import threading
 
+from tyleri_tpu_torch import _build as _kernels
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "host_runtime.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
-                         "tyleri_tpu_torch")
+BUILD_DIR = _kernels.BUILD_DIR   # the default build directory
+CXX_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17"]
+LIBS = ["-lz", "-pthread"]
 
 _lib = None
 _lib_lock = threading.Lock()
 _build_error: str | None = None
+compiles = 0   # g++ builds of the library in this process
+
+
+def library_path(directory: str | None = None) -> str:
+    """The library's path in ``directory`` (default: the build directory),
+    keyed by the flags and the source."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode())
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    return os.path.join(directory or _kernels.build_dir(),
+                        f"libtyleri_host_{h.hexdigest()[:16]}.so")
 
 
 def _build() -> str:
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libtyleri_host_{digest}.so")
+    global compiles
+    out = library_path()
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = ["g++", "-O2", "-fPIC", "-shared", "-std=c++17", _SRC, "-o", tmp,
-           "-pthread"]
-    subprocess.run(cmd, check=True, capture_output=True)
+    compiles += 1
+    cmd = ["g++", *CXX_FLAGS, _SRC, "-o", tmp, *LIBS]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"g++ failed ({e.returncode}): {e.stderr}") from e
     os.replace(tmp, out)
     return out
 
@@ -66,6 +86,11 @@ def _load():
         lib.ty_allocator_capacity.argtypes = [ctypes.c_void_p]
         lib.ty_allocator_largest_free.restype = u64
         lib.ty_allocator_largest_free.argtypes = [ctypes.c_void_p]
+        lib.ty_png_encode.restype = u64
+        lib.ty_png_encode.argtypes = [
+            ctypes.c_char_p, ctypes.c_uint32, ctypes.c_uint32,
+            ctypes.c_char_p, u64,
+        ]
         lib.ty_pacer_create.restype = ctypes.c_void_p
         lib.ty_pacer_create.argtypes = [ctypes.c_double]
         lib.ty_pacer_destroy.argtypes = [ctypes.c_void_p]
@@ -132,6 +157,23 @@ class NativeBlockAllocator:
     @property
     def largest_free(self) -> int:
         return int(self._lib.ty_allocator_largest_free(self._h))
+
+
+def png_encode(rgba) -> bytes:
+    """Encode [H, W, 4] u8 rgba via the native encoder."""
+    import numpy as np
+
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native runtime unavailable: {_build_error}")
+    arr = np.ascontiguousarray(rgba, np.uint8)
+    h, w = arr.shape[:2]
+    cap = arr.nbytes + (1 << 16)
+    out = ctypes.create_string_buffer(cap)
+    n = lib.ty_png_encode(arr.ctypes.data_as(ctypes.c_char_p), w, h, out, cap)
+    if n == 0:
+        raise RuntimeError("png encode failed")
+    return out.raw[:n]
 
 
 class FramePacer:

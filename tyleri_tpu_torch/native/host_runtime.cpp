@@ -1,6 +1,5 @@
 // tyleri_tpu_torch native host runtime: the port's copy of
-// tyleri_tpu/native/host_runtime.cpp, without its PNG encoder (the port
-// writes no PNG).
+// tyleri_tpu/native/host_runtime.cpp.
 //
 // C++ implementations of the host-side components that are native in the
 // reference's stack (the tyleri-gpu-utils crate, see SURVEY §2 row E2):
@@ -10,6 +9,8 @@
 //    the reference's usage at src/resource/mod.rs:152-153 and the python
 //    fallback in tyleri_tpu_torch/resource/arenas.py (same observable
 //    behavior, asserted equal by tests/test_torch_vendored.py)
+//  * PNG encode — the presentation-engine hot path for headless present
+//    (zlib-backed, much faster than the pure-python encoder)
 //  * FramePacer — FIFO/vsync presentation clock
 //    (ref: swapchain.rs:46-51 mandates FIFO; the pacer sleeps until the
 //    next refresh slot)
@@ -19,9 +20,12 @@
 #include <algorithm>
 #include <chrono>
 #include <cstdint>
+#include <cstring>
 #include <mutex>
 #include <thread>
 #include <vector>
+
+#include <zlib.h>
 
 extern "C" {
 
@@ -132,6 +136,68 @@ uint64_t ty_allocator_largest_free(TyAllocator* a) {
   uint64_t best = 0;
   for (const Block& b : a->free_list) best = std::max(best, b.size);
   return best;
+}
+
+// ---------------------------------------------------------------- png
+
+static void put_be32(std::vector<unsigned char>& v, uint32_t x) {
+  v.push_back((x >> 24) & 0xff);
+  v.push_back((x >> 16) & 0xff);
+  v.push_back((x >> 8) & 0xff);
+  v.push_back(x & 0xff);
+}
+
+static void put_chunk(std::vector<unsigned char>& out, const char tag[4],
+                      const unsigned char* data, uint32_t len) {
+  put_be32(out, len);
+  size_t start = out.size();
+  out.insert(out.end(), tag, tag + 4);
+  out.insert(out.end(), data, data + len);
+  uint32_t crc = crc32(0L, out.data() + start, 4 + len);
+  put_be32(out, crc);
+}
+
+// Encode rgba u8 [h, w, 4] to PNG. Returns number of bytes written to `out`
+// (caller provides out_cap bytes; returns 0 if too small or on error).
+uint64_t ty_png_encode(const unsigned char* rgba, uint32_t width,
+                       uint32_t height, unsigned char* out,
+                       uint64_t out_cap) {
+  const uint32_t stride = width * 4;
+  std::vector<unsigned char> raw;
+  raw.reserve((stride + 1) * height);
+  for (uint32_t y = 0; y < height; ++y) {
+    raw.push_back(0);  // filter: none
+    raw.insert(raw.end(), rgba + (size_t)y * stride,
+               rgba + (size_t)y * stride + stride);
+  }
+  uLongf comp_cap = compressBound(raw.size());
+  std::vector<unsigned char> comp(comp_cap);
+  if (compress2(comp.data(), &comp_cap, raw.data(), raw.size(), 6) != Z_OK)
+    return 0;
+
+  std::vector<unsigned char> png;
+  static const unsigned char magic[8] = {0x89, 'P', 'N', 'G', '\r', '\n',
+                                         0x1a, '\n'};
+  png.insert(png.end(), magic, magic + 8);
+  unsigned char ihdr[13];
+  ihdr[0] = (width >> 24) & 0xff;
+  ihdr[1] = (width >> 16) & 0xff;
+  ihdr[2] = (width >> 8) & 0xff;
+  ihdr[3] = width & 0xff;
+  ihdr[4] = (height >> 24) & 0xff;
+  ihdr[5] = (height >> 16) & 0xff;
+  ihdr[6] = (height >> 8) & 0xff;
+  ihdr[7] = height & 0xff;
+  ihdr[8] = 8;   // bit depth
+  ihdr[9] = 6;   // color type RGBA
+  ihdr[10] = ihdr[11] = ihdr[12] = 0;
+  put_chunk(png, "IHDR", ihdr, 13);
+  put_chunk(png, "IDAT", comp.data(), (uint32_t)comp_cap);
+  put_chunk(png, "IEND", nullptr, 0);
+
+  if (png.size() > out_cap) return 0;
+  std::memcpy(out, png.data(), png.size());
+  return png.size();
 }
 
 // ---------------------------------------------------------------- pacer

@@ -27,6 +27,7 @@ import time
 import torch
 
 from tyleri_tpu_torch.rendering import forward, passes
+from tyleri_tpu_torch.utils.profiling import annotate
 from tyleri_tpu_torch.window import render_window
 
 # (owner, attribute) of each stage, as the frame loop looks it up
@@ -44,7 +45,7 @@ STAGES = (
 
 @contextlib.contextmanager
 def stage_timers():
-    """Wrap every stage in a host timer and a ``record_function`` range
+    """Wrap every stage in a host timer and an ``annotate`` range
     while the block runs; yields {stage name: host seconds}."""
     host = collections.defaultdict(float)
 
@@ -52,7 +53,7 @@ def stage_timers():
         @functools.wraps(fn)
         def call(*args, **kwargs):
             t0 = time.perf_counter()
-            with torch.profiler.record_function("stage::" + name):
+            with annotate("stage::" + name):
                 out = fn(*args, **kwargs)
             host[name] += time.perf_counter() - t0
             return out

@@ -32,7 +32,7 @@ from tyleri_tpu_torch.tools import _common, exp_fixedcost, exp_pipecost
 KERNELS = ("fixed_cost_kernel", "pipe_cost_kernel")
 _BUILD = ("import sys; sys.path.insert(0, {root!r}); "
           "from tyleri_tpu_torch import _build; _build.CSRC = {csrc!r}; "
-          "_build.BUILD_DIR = {bdir!r}; print(_build.build())")
+          "_build.set_build_dir({bdir!r}); print(_build.build())")
 
 
 def build_all(trees: dict[str, str], device, card) -> dict:
@@ -43,7 +43,7 @@ def build_all(trees: dict[str, str], device, card) -> dict:
         name: subprocess.Popen(
             [sys.executable, "-c", _BUILD.format(
                 root=root, csrc=os.path.abspath(csrc),
-                bdir=os.path.join(_build.BUILD_DIR, "turns", name))],
+                bdir=os.path.join(_build.build_dir(), "turns", name))],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for name, csrc in trees.items()}
     libs = {}

@@ -1,6 +1,6 @@
-"""Profiling & metrics: frame-time ring and FPS / Mtris counters (copy of
-``tyleri_tpu/utils/profiling.py`` without its JAX profiler hooks; the
-port's profiler is ``testing/profile_frame.py``).
+"""Profiling & metrics: frame-time ring, FPS / Mtris counters, and
+torch.profiler trace hooks (the port's copy of
+``tyleri_tpu/utils/profiling.py``, whose hooks wrap ``jax.profiler``).
 
 The reference has no observability at all (SURVEY §5) — these counters are
 required by the BASELINE metric (FPS + Mtris/s) and the validation-mode
@@ -9,9 +9,11 @@ equivalent of the debug messenger for performance messages.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
+import torch
 
 
 class FrameProfiler:
@@ -63,3 +65,24 @@ class FrameProfiler:
             "mtris_per_s": round(self.mtris_per_s(), 3),
         }
 
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """torch.profiler trace around a block: CPU activity, and CUDA activity
+    where a card is present (CUPTI records every kernel of the context, the
+    ones launched through ctypes from the nvcc-built library included).  A
+    Chrome/TensorBoard trace (``*.pt.trace.json``) lands in ``log_dir`` when
+    the block ends."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
+        yield
+
+
+def annotate(name: str):
+    """Named range visible in profiler traces (``record_function``)."""
+    return torch.profiler.record_function(name)
