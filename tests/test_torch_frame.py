@@ -222,20 +222,26 @@ def test_reduced_sponza_converges_through_the_fit_stages():
 
 
 def test_profile_stage_timers_cover_the_frame():
-    """The frame profiler's stage timers see every stage of a frame and
-    put the stages back afterwards."""
-    from tyleri_tpu_torch.testing.profile_frame import STAGES, stage_timers
+    """One CPU frame under the recorder (``utils/profiling.tracing``, which
+    testing/profile_frame.py reports from) holds a span for every layer of
+    the frame, binning's five parts inside ``bin``, each of positive
+    length."""
+    from tyleri_tpu_torch.utils.profiling import tracing
 
     _, res, t = CONFIGS["config5"]
     dev = tt.RenderDeviceBuilder().device("cpu").build()
     rig = tt.scenes.config5_sponza(dev, res, grid_n=24)
     win = tt.RenderWindow(dev, resolution=res, present_mode="immediate")
-    before = [getattr(owner, name) for owner, name in STAGES]
-    with stage_timers() as host:
+    with tracing() as records:
         one_frame(win, rig, t)
-    assert set(host) == {name for _, name in STAGES}
-    assert all(s > 0 for s in host.values())
-    assert [getattr(owner, name) for owner, name in STAGES] == before
+    spans = records.spans
+    names = {s.name for s in spans}
+    assert {"plan", "setup", "bin", "raster", "shade",
+            "present.enqueue"} <= names, names
+    (b,) = [i for i, s in enumerate(spans) if s.name == "bin"]
+    assert [s.name for s in spans if s.parent == b] == [
+        "bin.sort", "bin.dense", "bin.spill", "bin.tiles", "bin.broad"]
+    assert all(s.end_ns > s.start_ns for s in spans)
 
 
 def ui_overlay(white, glyph, n=6, seed=4, extent=(64, 64)):

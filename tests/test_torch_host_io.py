@@ -9,6 +9,7 @@ repository's root conftest (which imports JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_host_io.py
 """
 
+import collections
 import glob
 import json
 import os
@@ -20,9 +21,8 @@ import torch
 import tyleri_tpu_torch as tt
 from tyleri_tpu_torch import _build, native
 from tyleri_tpu_torch.testing import seeded_frame
-from tyleri_tpu_torch.testing.profile_frame import stage_timers
 from tyleri_tpu_torch.utils import image
-from tyleri_tpu_torch.utils.profiling import annotate, trace
+from tyleri_tpu_torch.utils.profiling import annotate, trace, tracing
 
 
 @pytest.fixture
@@ -71,16 +71,22 @@ def test_trace_holds_the_annotated_frame(tmp_path):
 
 
 def test_profile_frame_stages_are_annotated_ranges(tmp_path):
-    """testing/profile_frame.py marks its stages with ``annotate``: each
-    stage that ran is a range in the trace, at least once a frame."""
-    with trace(str(tmp_path)), stage_timers() as host:
+    """Inside ``trace``, every span the recorder keeps (the layers
+    testing/profile_frame.py reports) is a ``ty::`` range in the trace, as
+    many times as it was recorded; the ranges are record-function scopes,
+    not user annotations, and leave the annotation around them whole."""
+    with tracing() as records, trace(str(tmp_path)):
         cpu_frame([0.0, 0.1])
     events = trace_events(tmp_path)
     assert len(ranges(events, "frame")) == 2
-    assert {"bin_triangles", "shade_visibility", "quantize_unorm8"} <= \
-        set(host)
-    for name in host:
-        assert len(ranges(events, "stage::" + name)) >= 2, name
+    recorded = collections.Counter(s.name for s in records.spans)
+    assert {"frame", "record", "plan", "bin", "bin.spill", "shade",
+            "present.enqueue", "present", "flush"} <= set(recorded)
+    for name, n in recorded.items():
+        assert len([e for e in events if e.get("cat") == "cpu_op"
+                    and e.get("name") == "ty::" + name]) == n, name
+        assert not ranges(events, "ty::" + name)
+    assert all(s.profile == 0 for s in records.spans)
 
 
 @pytest.mark.cuda

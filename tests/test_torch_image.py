@@ -8,6 +8,9 @@ native encoder and the pure-python path give the same bytes: the tests hold
 all four writers (two packages, two paths) to one another.
 """
 
+import fcntl
+import importlib
+import os
 import struct
 import zlib
 
@@ -22,6 +25,8 @@ from tyleri_tpu_torch import native
 from tyleri_tpu_torch.utils import image
 
 SIZES = [(1, 1), (33, 47), (64, 64)]
+BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "build")
 
 
 def noise(shape, seed=5):
@@ -42,13 +47,33 @@ def test_to_unorm8_matches_the_jax_package():
     assert got.flat[1] == 255 and got.flat[2] == 0
 
 
+@pytest.fixture
+def jax_host_library():
+    """The JAX package's host library, loaded.  That package builds it on
+    first use under one temporary file name for every process, so of two
+    processes that build it at once the one whose file the other moved
+    away first reports it unavailable, and keeps that answer.  Here the
+    load is taken under a lock that these tests share, and a load that
+    failed while another process was building is made once more, afresh:
+    the library is there by then."""
+    os.makedirs(BUILD, exist_ok=True)
+    with open(os.path.join(BUILD, ".host_library.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not jnative.available():
+                importlib.reload(jnative)
+            assert jnative.available(), jnative.build_error()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return jnative
+
+
 @pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
-def test_png_encode_matches_the_jax_package(size):
+def test_png_encode_matches_the_jax_package(size, jax_host_library):
     assert native.available(), native.build_error()
-    assert jnative.available(), jnative.build_error()
     img = noise(size)
     got = native.png_encode(img)
-    assert got == jnative.png_encode(img)
+    assert got == jax_host_library.png_encode(img)
     np.testing.assert_array_equal(_decode(got), img)
 
 

@@ -31,6 +31,7 @@ import torch
 
 from tyleri_tpu_torch.ops import setup as S
 from tyleri_tpu_torch.ops.setup import TriangleSetup
+from tyleri_tpu_torch.utils.profiling import span
 
 # per-level capacity fractions of spill_cap (the JAX package's tuning)
 _LEVEL_FRACS = (0.6, 0.2, 0.08, 0.03, 0.012)
@@ -83,6 +84,15 @@ def bin_triangles(setup: TriangleSetup, extra=None, *, grid_w: int,
                   grid_h: int, entry_cap: int, max_tiles_per_tri: int = 32,
                   broad_cap: int = 256, spill_cap: int = 1 << 16,
                   valid_cap: int = 0, spill_level_caps=()) -> BinnedEntries:
+    with span("bin"):
+        return _bin_triangles(setup, extra, grid_w, grid_h, entry_cap,
+                              max_tiles_per_tri, broad_cap, spill_cap,
+                              valid_cap, spill_level_caps)
+
+
+def _bin_triangles(setup, extra, grid_w, grid_h, entry_cap,
+                   max_tiles_per_tri, broad_cap, spill_cap, valid_cap,
+                   spill_level_caps) -> BinnedEntries:
     dev = setup.valid.device
     T = setup.valid.shape[0]
     ntiles = grid_w * grid_h
@@ -91,114 +101,120 @@ def bin_triangles(setup: TriangleSetup, extra=None, *, grid_w: int,
     assert K <= 32, "packed key carries scount/tw in 5 bits each"
     assert T < (1 << 21), "packed key carries the triangle id in 21 bits"
 
-    tx0, ty0 = setup.tile_lo[:, 0].long(), setup.tile_lo[:, 1].long()
-    tx1, ty1 = setup.tile_hi[:, 0].long(), setup.tile_hi[:, 1].long()
-    tw = torch.clamp(tx1 - tx0 + 1, min=0)
-    th = torch.clamp(ty1 - ty0 + 1, min=0)
-    ncover = torch.where(setup.valid, tw * th, torch.zeros_like(tw))
-    is_broad = setup.valid & (ncover > K)
-    is_narrow = setup.valid & (ncover <= K) & (ncover > 0)
-    dense_live = is_narrow.sum()
+    with span("bin.sort"):
+        tx0, ty0 = setup.tile_lo[:, 0].long(), setup.tile_lo[:, 1].long()
+        tx1, ty1 = setup.tile_hi[:, 0].long(), setup.tile_hi[:, 1].long()
+        tw = torch.clamp(tx1 - tx0 + 1, min=0)
+        th = torch.clamp(ty1 - ty0 + 1, min=0)
+        ncover = torch.where(setup.valid, tw * th, torch.zeros_like(tw))
+        is_broad = setup.valid & (ncover > K)
+        is_narrow = setup.valid & (ncover <= K) & (ncover > 0)
+        dense_live = is_narrow.sum()
 
-    tri_ids = torch.arange(T, dtype=torch.int64, device=dev)
-    zmin_q = setup.channels[:, S.CH_ZMIN].to(torch.int64)  # 0..65535 exact
-    scount = torch.where(is_narrow, torch.clamp(ncover - 1, min=0),
-                         torch.zeros_like(ncover))
-    total_spill = scount.sum()
-    caps = _level_caps(spill_cap, K, override=spill_level_caps)
-    level_demand = torch.stack([(scount >= (1 << j)).sum()
-                                for j in range(len(caps))])
+        tri_ids = torch.arange(T, dtype=torch.int64, device=dev)
+        zmin_q = setup.channels[:, S.CH_ZMIN].to(torch.int64)  # 0..65535 exact
+        scount = torch.where(is_narrow, torch.clamp(ncover - 1, min=0),
+                             torch.zeros_like(ncover))
+        total_spill = scount.sum()
+        caps = _level_caps(spill_cap, K, override=spill_level_caps)
+        level_demand = torch.stack([(scount >= (1 << j)).sum()
+                                    for j in range(len(caps))])
 
-    # key = (31-scount)<<26 | (tw-1)<<21 | tri  (dead rows: all ones)
-    # opA = zmin<<16 | ty0<<8 | tx0
-    twc = torch.clamp(tw, 1, K)
-    key = ((31 - scount) << 26) | ((twc - 1) << 21) | tri_ids
-    key = torch.where(is_narrow, key, torch.full_like(key, _DEAD))
-    opA = ((torch.clamp(zmin_q, 0, 65535) << 16)
-           | (torch.clamp(ty0, 0, 255) << 8) | torch.clamp(tx0, 0, 255))
-    vcap = min(valid_cap, entry_cap) if valid_cap else T
-    n_pad = max(max(vcap, max(caps)) - T, 0)
-    if n_pad:
-        key = torch.cat([key, torch.full((n_pad,), _DEAD, dtype=torch.int64,
-                                         device=dev)])
-        opA = torch.cat([opA, opA.new_zeros((n_pad,))])
-    key, perm = torch.sort(key)
-    opA = opA[perm]
+        # key = (31-scount)<<26 | (tw-1)<<21 | tri  (dead rows: all ones)
+        # opA = zmin<<16 | ty0<<8 | tx0
+        twc = torch.clamp(tw, 1, K)
+        key = ((31 - scount) << 26) | ((twc - 1) << 21) | tri_ids
+        key = torch.where(is_narrow, key, torch.full_like(key, _DEAD))
+        opA = ((torch.clamp(zmin_q, 0, 65535) << 16)
+               | (torch.clamp(ty0, 0, 255) << 8) | torch.clamp(tx0, 0, 255))
+        vcap = min(valid_cap, entry_cap) if valid_cap else T
+        n_pad = max(max(vcap, max(caps)) - T, 0)
+        if n_pad:
+            key = torch.cat([key, torch.full((n_pad,), _DEAD,
+                                             dtype=torch.int64, device=dev)])
+            opA = torch.cat([opA, opA.new_zeros((n_pad,))])
+        key, perm = torch.sort(key)
+        opA = opA[perm]
 
-    def unpack(cap):
-        k, a = key[:cap], opA[:cap]
-        live = k != _DEAD
-        scnt = 31 - ((k >> 26) & 0x1F)
-        twl = ((k >> 21) & 0x1F) + 1
-        tril = k & ((1 << 21) - 1)
-        return live, scnt, twl, tril, a >> 16, (a >> 8) & 0xFF, a & 0xFF
+        def unpack(cap):
+            k, a = key[:cap], opA[:cap]
+            live = k != _DEAD
+            scnt = 31 - ((k >> 26) & 0x1F)
+            twl = ((k >> 21) & 0x1F) + 1
+            tril = k & ((1 << 21) - 1)
+            return live, scnt, twl, tril, a >> 16, (a >> 8) & 0xFF, a & 0xFF
 
-    # dense slots: every live narrow triangle, compacted
-    live, _, _, tril, zq, ty, tx = unpack(vcap)
-    dead_tile = torch.full_like(tx, ntiles)
-    seg_tile = [torch.where(live, ty * grid_w + tx, dead_tile)]
-    seg_zmin, seg_tri = [zq], [tril]
-    placed_dense = live.sum()
-    placed_spill = torch.zeros((), dtype=torch.int64, device=dev)
-    lo = 1
-    for cap in caps:
-        hi = min(2 * lo, K) - 1           # cover indices [lo, hi]
-        live, scnt, twl, tril, zq, ty, tx = unpack(cap)
+    with span("bin.dense"):
+        # dense slots: every live narrow triangle, compacted
+        live, _, _, tril, zq, ty, tx = unpack(vcap)
         dead_tile = torch.full_like(tx, ntiles)
-        for c in range(lo, hi + 1):
-            lv = live & (scnt >= c)
-            cy = ty + torch.div(c, twl, rounding_mode="floor")
-            cx = tx + c - torch.div(c, twl, rounding_mode="floor") * twl
-            seg_tile.append(torch.where(lv, cy * grid_w + cx, dead_tile))
-            seg_zmin.append(zq)
-            seg_tri.append(tril)
-            placed_spill = placed_spill + lv.sum()
-        lo *= 2
-        if lo >= K:
-            break
+        seg_tile = [torch.where(live, ty * grid_w + tx, dead_tile)]
+        seg_zmin, seg_tri = [zq], [tril]
+        placed_dense = live.sum()
+    with span("bin.spill"):
+        placed_spill = torch.zeros((), dtype=torch.int64, device=dev)
+        lo = 1
+        for cap in caps:
+            hi = min(2 * lo, K) - 1           # cover indices [lo, hi]
+            live, scnt, twl, tril, zq, ty, tx = unpack(cap)
+            dead_tile = torch.full_like(tx, ntiles)
+            for c in range(lo, hi + 1):
+                lv = live & (scnt >= c)
+                cy = ty + torch.div(c, twl, rounding_mode="floor")
+                cx = tx + c - torch.div(c, twl, rounding_mode="floor") * twl
+                seg_tile.append(torch.where(lv, cy * grid_w + cx, dead_tile))
+                seg_zmin.append(zq)
+                seg_tri.append(tril)
+                placed_spill = placed_spill + lv.sum()
+            lo *= 2
+            if lo >= K:
+                break
 
-    # disjoint overflow terms: valid_cap drops, level-cap drops, then
-    # entry-cap drops of the rest
-    live_placed = placed_dense + placed_spill
-    overflow = ((dense_live - placed_dense) + (total_spill - placed_spill)
-                + torch.clamp(live_placed - entry_cap, min=0))
+    with span("bin.tiles"):
+        # disjoint overflow terms: valid_cap drops, level-cap drops, then
+        # entry-cap drops of the rest
+        live_placed = placed_dense + placed_spill
+        overflow = ((dense_live - placed_dense) + (total_spill - placed_spill)
+                    + torch.clamp(live_placed - entry_cap, min=0))
 
-    all_tile = torch.cat(seg_tile)
-    all_zmin = torch.cat(seg_zmin)
-    all_tri = torch.cat(seg_tri)
-    pad = max(entry_cap - all_tile.shape[0], 0)
-    if pad:
-        all_tile = torch.cat([all_tile, all_tile.new_full((pad,), ntiles)])
-        all_zmin = torch.cat([all_zmin, all_zmin.new_zeros((pad,))])
-        all_tri = torch.cat([all_tri, all_tri.new_zeros((pad,))])
+        all_tile = torch.cat(seg_tile)
+        all_zmin = torch.cat(seg_zmin)
+        all_tri = torch.cat(seg_tri)
+        pad = max(entry_cap - all_tile.shape[0], 0)
+        if pad:
+            all_tile = torch.cat([all_tile, all_tile.new_full((pad,), ntiles)])
+            all_zmin = torch.cat([all_zmin, all_zmin.new_zeros((pad,))])
+            all_tri = torch.cat([all_tri, all_tri.new_zeros((pad,))])
 
-    # (tile, zmin) sort: dead rows carry the ntiles sentinel and sort last
-    key2 = (all_tile << 16) | torch.clamp(all_zmin, 0, 65535)
-    key2, perm2 = torch.sort(key2)
-    i32 = torch.int32
-    entry_tile = (key2[:entry_cap] >> 16).to(i32)
-    # dead rows carry the all-ones triangle id; the gather clamps it, as
-    # XLA's does
-    entry_tri = torch.clamp(all_tri[perm2[:entry_cap]], max=T - 1)
-    tile_start = torch.searchsorted(
-        entry_tile, torch.arange(ntiles + 1, dtype=i32, device=dev),
-        side="left").to(i32)
-    # dead rows keep their (garbage) channels: consumers mask by segment
-    entry_channels = setup.channels[entry_tri]
+        # (tile, zmin) sort: dead rows carry the ntiles sentinel and sort last
+        key2 = (all_tile << 16) | torch.clamp(all_zmin, 0, 65535)
+        key2, perm2 = torch.sort(key2)
+        i32 = torch.int32
+        entry_tile = (key2[:entry_cap] >> 16).to(i32)
+        # dead rows carry the all-ones triangle id; the gather clamps it, as
+        # XLA's does
+        entry_tri = torch.clamp(all_tri[perm2[:entry_cap]], max=T - 1)
+        tile_start = torch.searchsorted(
+            entry_tile, torch.arange(ntiles + 1, dtype=i32, device=dev),
+            side="left").to(i32)
+        # dead rows keep their (garbage) channels: consumers mask by segment
+        entry_channels = setup.channels[entry_tri]
 
-    # broad triangles: compacted side list (inverse lookup, no scatter)
-    num_broad = is_broad.sum()
-    bcum = torch.cumsum(is_broad.to(i32), dim=0, dtype=i32)
-    broad_src = torch.searchsorted(
-        bcum, torch.arange(1, broad_cap + 1, dtype=i32, device=dev),
-        side="left")
-    broad_live = broad_src < T
-    broad_src = torch.clamp(broad_src, 0, T - 1)
-    bbox = torch.stack([tx0, ty0, tx1, ty1], dim=1)[broad_src]
-    empty = torch.zeros((1, 4), dtype=bbox.dtype, device=dev)
-    empty[:, :2] = 1                      # (1, 1, 0, 0): an empty bbox
-    broad_tiles = torch.where(broad_live[:, None], bbox, empty).to(i32)
-    overflow = overflow + torch.clamp(num_broad - broad_cap, min=0)
+    with span("bin.broad"):
+        # broad triangles: compacted side list (inverse lookup, no scatter)
+        num_broad = is_broad.sum()
+        bcum = torch.cumsum(is_broad.to(i32), dim=0, dtype=i32)
+        broad_src = torch.searchsorted(
+            bcum, torch.arange(1, broad_cap + 1, dtype=i32, device=dev),
+            side="left")
+        broad_live = broad_src < T
+        broad_src = torch.clamp(broad_src, 0, T - 1)
+        bbox = torch.stack([tx0, ty0, tx1, ty1], dim=1)[broad_src]
+        empty = torch.zeros((1, 4), dtype=bbox.dtype, device=dev)
+        empty[:, :2] = 1                      # (1, 1, 0, 0): an empty bbox
+        broad_tiles = torch.where(broad_live[:, None], bbox, empty).to(i32)
+        overflow = overflow + torch.clamp(num_broad - broad_cap, min=0)
+        broad_channels = setup.channels[broad_src]
 
     return BinnedEntries(
         entry_channels=entry_channels,
@@ -206,7 +222,7 @@ def bin_triangles(setup: TriangleSetup, extra=None, *, grid_w: int,
         tile_start=tile_start,
         num_entries=torch.clamp(live_placed, max=entry_cap).to(i32),
         overflow=overflow.to(i32),
-        broad_channels=setup.channels[broad_src],
+        broad_channels=broad_channels,
         broad_tiles=broad_tiles.contiguous(),
         num_broad=torch.clamp(num_broad, max=broad_cap).to(i32),
         dense_demand=dense_live.to(i32),

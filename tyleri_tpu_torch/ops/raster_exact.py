@@ -25,6 +25,7 @@ from tyleri_tpu_torch.ops.blend import apply_blend, apply_compare
 from tyleri_tpu_torch.ops.depth import quantize_depth
 from tyleri_tpu_torch.ops.sampling import sample_bilinear
 from tyleri_tpu_torch.pipeline.state import PipelineState
+from tyleri_tpu_torch.utils.profiling import span
 
 
 def _vertex_color_planes(vertex_color, clip, lam):
@@ -71,7 +72,8 @@ def rasterize_exact(color, depth, clip, uv, tex_id, tri_valid, viewport,
     rows = torch.cat([su.valid[:, None].to(torch.int32), su.tile_lo,
                       su.tile_hi, solid[:, None].to(torch.int32),
                       (meta >> S.META_TEX_BITS)[:, None]], dim=1)
-    host = rows.cpu().tolist()
+    with span("ui.read"):
+        host = rows.cpu().tolist()
 
     xc = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5)[None, :]
     yc = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5)[:, None]

@@ -51,6 +51,7 @@ from tyleri_tpu_torch.rendering.passes import (
 )
 from tyleri_tpu_torch.resource.arenas import geometry_tensors
 from tyleri_tpu_torch.resource.textures import texture_tensors
+from tyleri_tpu_torch.utils.profiling import count, span
 
 CLEAR_COLOR = (0.0, 0.0, 0.0, 0.0)  # ref: mod.rs:218-223
 CLEAR_DEPTH = 1.0                   # ref: mod.rs:224-229
@@ -166,15 +167,16 @@ def frame_body(plan: FramePlan, mesh_state, texels, tex_offset, tex_width,
         # the UI records first (ref: mod.rs:291-296): its depth write at
         # z = 0 occludes the mesh fragments behind it
         ui_clip, ui_uv, ui_color, ui_tex, ui_valid, wvp, wsc = ui
-        color, depth = ui_pass(ui_state, color, depth, ui_clip, ui_uv,
-                               ui_color, ui_tex, ui_valid,
-                               _shift_viewport(wvp, band_y0),
-                               _shift_scissor(wsc, band_y0, H), texels,
-                               tex_offset, tex_width, tex_height)
+        with span("ui"):
+            color, depth = ui_pass(ui_state, color, depth, ui_clip, ui_uv,
+                                   ui_color, ui_tex, ui_valid,
+                                   _shift_viewport(wvp, band_y0),
+                                   _shift_scissor(wsc, band_y0, H), texels,
+                                   tex_offset, tex_width, tex_height)
         order = torch.where(depth < CLEAR_DEPTH, 0.0, order)
     # camera-pass order stride: pass orders are table rows in
     # [0, tri_cap + clip_cap)
-    span = float(plan.tri_cap + plan.raster.clip_cap + 1)
+    stride = float(plan.tri_cap + plan.raster.clip_cap + 1)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     bin_of = tile_of = clip_of = clip_x = bin_dem = entry_dem = zero
     spill_dem = None
@@ -209,7 +211,7 @@ def frame_body(plan: FramePlan, mesh_state, texels, tex_offset, tex_width,
                 draw_mod=draw_mod)
         if pass_order is not None:   # exact mode keeps no order map
             order = torch.where(pass_order >= 0.0,
-                                c * span + pass_order + 1.0, order)
+                                c * stride + pass_order + 1.0, order)
         bin_of = bin_of + st.bin_overflow
         tile_of = tile_of + st.tile_overflow
         clip_of = clip_of + st.clip_overflow
@@ -373,6 +375,7 @@ class ForwardRenderingFunction:
                         has_ui=has_ui, lit=lit)
         if new != p:
             self.plan = new
+            count("plan.changes")
 
     def note_overflow(self, bin_overflow: int, tile_overflow: int,
                       clip_overflow: int = 0, clip_crossings: int = 0,
@@ -381,6 +384,7 @@ class ForwardRenderingFunction:
         """Occupancy feedback from the frame loop; ``n_frames`` is how many
         frames the (aggregated) report covers."""
         n_frames = max(1, int(n_frames))
+        before = self.plan
         if bin_overflow > 0:
             # the counter conflates valid_cap, spill-level and broad-list
             # truncation: grow or reset all three
@@ -475,14 +479,17 @@ class ForwardRenderingFunction:
                     self._clip_clean_frames = 0
             else:
                 self._clip_clean_frames = 0
+        if self.plan is not before and self.plan != before:
+            count("plan.changes")
 
     def record(self, render_device, render_resources, scale_factor,
                window_size) -> Frame:
         """Record one frame; the returned tensors are still computing."""
-        inputs = self.build_frame_inputs(render_device, render_resources,
-                                         scale_factor, window_size)
-        return frame_body(self.plan, self.mesh_state, *inputs,
-                          ui_state=self.ui_state)
+        with span("record"):
+            inputs = self.build_frame_inputs(render_device, render_resources,
+                                             scale_factor, window_size)
+            return frame_body(self.plan, self.mesh_state, *inputs,
+                              ui_state=self.ui_state)
 
     def record_sharded(self, render_device, render_resources, scale_factor,
                        window_size, device_mesh) -> Frame:
@@ -491,6 +498,13 @@ class ForwardRenderingFunction:
         it with the same scene.  The draws go to the ``draws`` axis as the
         reference's ParallelGroup spreads them over threads
         (Camera::get_and_order_meshes, ref camera.rs:32-39)."""
+        with span("record"):
+            return self._record_sharded(render_device, render_resources,
+                                        scale_factor, window_size,
+                                        device_mesh)
+
+    def _record_sharded(self, render_device, render_resources, scale_factor,
+                        window_size, device_mesh) -> Frame:
         from tyleri_tpu_torch.parallel.mesh import AXIS_DRAWS, AXIS_TILES
         from tyleri_tpu_torch.parallel.sharding import (
             derive_draw_groups,
@@ -539,6 +553,12 @@ class ForwardRenderingFunction:
         triangle tables; for lit frames also the models (device), the
         lights, inverse view-projections and eyes (host); last the UI
         overlay (None when the frame has none)."""
+        with span("plan"):
+            return self._frame_inputs(render_device, render_resources,
+                                      scale_factor, window_size)
+
+    def _frame_inputs(self, render_device, render_resources, scale_factor,
+                      window_size):
         cams = render_resources.cameras
         lit = any(getattr(c, "light", None) is not None for c in cams)
         n_draws = max((len(c.mesh_renderers) for c in cams), default=0)

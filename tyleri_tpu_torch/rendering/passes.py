@@ -48,6 +48,7 @@ from tyleri_tpu_torch.ops.visibility import (
     k3_supports,
     rasterize_visibility_last_passing,
 )
+from tyleri_tpu_torch.utils.profiling import span
 
 
 def _cdiv(a, b):
@@ -175,18 +176,20 @@ def mesh_pass_fused(plan: RasterPlan, state: PipelineState, color, depth,
     dims = setup_dims(plan)
     # the kernel masks before it flags crossers, so the re-clip below sees
     # only this device's crossers and needs no mask of its own
-    su, crossings, crossed = fused_setup(
-        corners, tri_draw, tri_tex, tri_valid, mvps, cam_valid, viewport,
-        scissor, cull_mode=state.raster.cull_mode,
-        front_face=state.raster.front_face, draw_mod=draw_mod, **dims)
+    with span("setup"):
+        su, crossings, crossed = fused_setup(
+            corners, tri_draw, tri_tex, tri_valid, mvps, cam_valid, viewport,
+            scissor, cull_mode=state.raster.cull_mode,
+            front_face=state.raster.front_face, draw_mod=draw_mod, **dims)
     if not plan.near_clip:
         # cull mode: crossers were dropped and counted (crossings), which
         # re-enables clipping for the next frame
         clip_overflow = torch.zeros_like(crossings)
     elif plan.clip_cap > 0:
-        su, clip_overflow = _fused_clip_subset(
-            su, crossed, (corners, tri_draw, tri_tex), mvps, viewport,
-            scissor, state, plan.clip_cap, dims)
+        with span("clip"):
+            su, clip_overflow = _fused_clip_subset(
+                su, crossed, (corners, tri_draw, tri_tex), mvps, viewport,
+                scissor, state, plan.clip_cap, dims)
     else:
         clip_overflow = crossings   # no split rows: every crosser is lost
     return _raster_binned(plan, state, color, depth, su, scissor, texels,
@@ -213,12 +216,14 @@ def mesh_pass(plan: RasterPlan, state: PipelineState, color, depth, clip,
     # shape-agnostic on the attribute axis)
     attrs = torch.cat([uv, normals], dim=-1) if lit else uv
     clip_fn = near_clip_triangles if plan.near_clip else near_cull_triangles
-    ct = clip_fn(clip, attrs, tex_id, tri_valid, extra_cap=plan.clip_cap)
+    with span("clip"):
+        ct = clip_fn(clip, attrs, tex_id, tri_valid, extra_cap=plan.clip_cap)
     if plan.exact:
-        color, depth = rasterize_exact(
-            color, depth, ct.clip, ct.uv, ct.tex_id, ct.valid, viewport,
-            scissor, texels, tex_offset, tex_width, tex_height, state=state,
-            order=ct.order)
+        with span("raster"):
+            color, depth = rasterize_exact(
+                color, depth, ct.clip, ct.uv, ct.tex_id, ct.valid, viewport,
+                scissor, texels, tex_offset, tex_width, tex_height,
+                state=state, order=ct.order)
         zero = torch.zeros((), dtype=torch.int32, device=color.device)
         return (color, depth,
                 PassStats(zero, zero, ct.overflow, ct.crossings, zero, zero,
@@ -226,10 +231,11 @@ def mesh_pass(plan: RasterPlan, state: PipelineState, color, depth, clip,
                                       device=color.device)),
                 None)
     dims = setup_dims(plan)
-    su = setup_triangles(ct.clip, ct.uv[..., :2], ct.tex_id, ct.valid,
-                         viewport, scissor, order=ct.order,
-                         cull_mode=state.raster.cull_mode,
-                         front_face=state.raster.front_face, **dims)
+    with span("setup"):
+        su = setup_triangles(ct.clip, ct.uv[..., :2], ct.tex_id, ct.valid,
+                             viewport, scissor, order=ct.order,
+                             cull_mode=state.raster.cull_mode,
+                             front_face=state.raster.front_face, **dims)
     extra = None
     if lit:
         # world-normal/w planes per (post-clip) triangle: plane-evaluating
@@ -268,11 +274,13 @@ def _raster_binned(plan: RasterPlan, state: PipelineState, color, depth, su,
     # passes.py:170-196); peel2 is K3's, off on the other route
     k3 = k3_supports(state.depth)
     peel2 = plan.peel2 and k3
-    if k3:
-        vis = rasterize_visibility(binned, depth, scissor, chunk=plan.chunk,
-                                   peel2=peel2, **kw)
-    else:
-        vis = rasterize_visibility_last_passing(binned, depth, scissor, **kw)
+    with span("raster"):
+        if k3:
+            vis = rasterize_visibility(binned, depth, scissor,
+                                       chunk=plan.chunk, peel2=peel2, **kw)
+        else:
+            vis = rasterize_visibility_last_passing(binned, depth, scissor,
+                                                    **kw)
     layers = list(vis) if peel2 else [vis]   # (vis, vis2)
     vis = layers[0]
     lit = None
@@ -282,9 +290,10 @@ def _raster_binned(plan: RasterPlan, state: PipelineState, color, depth, su,
         lit = (nw_planes, light, inv_vp, eye, viewport)
     # layer 2 blends into the incoming framebuffer first, the winner over it
     for layer in reversed(layers):
-        color = shade_visibility(layer, texels, tex_offset, tex_width,
-                                 tex_height, state.blend, color, lit=lit,
-                                 aniso_taps=plan.aniso_taps)
+        with span("shade"):
+            color = shade_visibility(layer, texels, tex_offset, tex_width,
+                                     tex_height, state.blend, color, lit=lit,
+                                     aniso_taps=plan.aniso_taps)
     pass_order = torch.where(vis.owner >= 0, vis.order,
                              torch.full_like(vis.order, -1.0))
     stats = PassStats(binned.overflow, torch.zeros_like(binned.overflow),

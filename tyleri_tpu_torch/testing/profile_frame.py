@@ -1,4 +1,4 @@
-"""Profile the port's steady frame on one CUDA card: host time per stage,
+"""Profile the port's steady frame on one CUDA card: host time per span,
 device kernel time per frame, the largest kernels and the eager op count.
 
     python3 -m tyleri_tpu_torch.testing.profile_frame [--frames N]
@@ -8,9 +8,10 @@ Config 5 (sponza, 1.05M triangles) at 1920x1080 by default, or config 4
 (100 instances, peel2 under the "auto" blend policy).  The sponza camera
 orbits across the near plane and then stands still until the capacity plan
 has converged (as in chip_smoke.py); config 4 stands still throughout.
-Then N frames run unprofiled (CUDA events on the frame stream, host timers
-around each stage) and N more under torch.profiler (device time of every
-kernel and copy).  The report's first line is the card's name and power
+Then N frames run unprofiled (CUDA events on the frame stream; the frame
+loop's spans, ``utils/profiling.tracing``, give the host time of each
+layer) and N more under torch.profiler (device time of every kernel and
+copy).  The report's first line is the card's name and power
 limit.
 """
 
@@ -18,55 +19,28 @@ from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
-import functools
 import subprocess
 import sys
 import time
 
 import torch
 
-from tyleri_tpu_torch.rendering import forward, passes
-from tyleri_tpu_torch.utils.profiling import annotate
-from tyleri_tpu_torch.window import render_window
-
-# (owner, attribute) of each stage, as the frame loop looks it up
-STAGES = (
-    (forward.ForwardRenderingFunction, "build_frame_inputs"),
-    (passes, "fused_setup"),
-    (passes, "_fused_clip_subset"),
-    (passes, "bin_triangles"),
-    (passes, "rasterize_visibility"),
-    (passes, "shade_visibility"),
-    (render_window, "quantize_unorm8"),
-    (render_window, "_to_host"),
-)
+from tyleri_tpu_torch.utils.profiling import RANGE, tracing
 
 
-@contextlib.contextmanager
-def stage_timers():
-    """Wrap every stage in a host timer and an ``annotate`` range
-    while the block runs; yields {stage name: host seconds}."""
-    host = collections.defaultdict(float)
-
-    def timed(name, fn):
-        @functools.wraps(fn)
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            with annotate("stage::" + name):
-                out = fn(*args, **kwargs)
-            host[name] += time.perf_counter() - t0
-            return out
-        return call
-
-    saved = [(owner, name, getattr(owner, name)) for owner, name in STAGES]
-    try:
-        for owner, name, fn in saved:
-            setattr(owner, name, timed(name, fn))
-        yield host
-    finally:
-        for owner, name, fn in saved:
-            setattr(owner, name, fn)
+def span_ms(records, n: int) -> list:
+    """(span name, host ms a frame, self ms a frame: less what its child
+    spans cover), the longest first."""
+    total = collections.defaultdict(float)
+    own = collections.defaultdict(float)
+    for s in records.spans:
+        d = (s.end_ns - s.start_ns) * 1e-6 / n
+        total[s.name] += d
+        own[s.name] += d
+        if s.parent >= 0:
+            own[records.spans[s.parent].name] -= d
+    return sorted(((k, v, own[k]) for k, v in total.items()),
+                  key=lambda r: -r[1])
 
 
 def render(win, rig, times):
@@ -109,7 +83,7 @@ def main(argv=None) -> int:
     win.flush()
     converged = len(messages)
 
-    with stage_timers() as host:
+    with tracing() as records:
         # events ordered through the device's queue pool
         start = dev.present_queues.event(enable_timing=True)
         t0 = time.perf_counter()
@@ -123,10 +97,8 @@ def main(argv=None) -> int:
           f" peel2 {win.rendering_function.plan.raster.peel2}")
     print(f"unprofiled: {frame_ms:.3f} ms/frame by CUDA events, "
           f"{host_ms:.3f} ms/frame by host clock")
-    for name, s in sorted(host.items(), key=lambda kv: -kv[1]):
-        print(f"  host {name:24s} {s * 1e3 / n:8.3f} ms/frame")
-    print(f"  host {'all stages':24s} {sum(host.values()) * 1e3 / n:8.3f} "
-          "ms/frame")
+    for name, ms, own in span_ms(records, n):
+        print(f"  host {name:24s} {ms:8.3f} ms/frame, self {own:8.3f}")
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -137,7 +109,7 @@ def main(argv=None) -> int:
     device = sorted(
         ((r.self_device_time_total, r.count, r.key) for r in rows
          if r.device_type == torch.autograd.DeviceType.CUDA
-         and not r.key.startswith("stage::")), reverse=True)
+         and not r.key.startswith(RANGE)), reverse=True)
     busy_ms = sum(us for us, _, _ in device) / 1e3 / n
     aten = sum(r.count for r in rows if r.key.startswith("aten::")) / n
     print(f"profiled: device kernels and copies {busy_ms:.3f} ms/frame "

@@ -41,7 +41,12 @@ import torch
 
 from tyleri_tpu_torch.device.builders import RenderDeviceBuilder
 from tyleri_tpu_torch.scene.render_scene import RenderScene
-from tyleri_tpu_torch.utils.profiling import FrameProfiler
+from tyleri_tpu_torch.utils.profiling import (
+    FrameProfiler,
+    count,
+    recording,
+    span,
+)
 from tyleri_tpu_torch.window.swapchain import ImageViewSwapchain
 from tyleri_tpu_torch.rendering.forward import (
     ForwardRenderingFunction,
@@ -96,13 +101,20 @@ def _check_mesh(device_mesh, render_device) -> None:
 class _InFlight:
     """One swapchain slot's frame (ref: render_window.rs:29-43)."""
 
-    def __init__(self, frame, scene, plan, image, stats, fence):
+    def __init__(self, frame, scene, plan, image, stats, fence, index,
+                 triangles):
         self.frame = frame    # the recorded Frame (device tensors)
         self.scene = scene    # the RenderScene that recorded it
         self.plan = plan      # the rendering function's plan at record time
         self._image = image   # u8 [H, W, 4] host copy in flight
         self._stats = stats   # i32 stats vector host copy in flight
         self._fence = fence   # CUDA event after the copies (None on CPU)
+        self.index = index    # the window's frame_index when it recorded
+        self.triangles = triangles  # the scene's triangle count
+
+    def pending(self) -> bool:
+        """Whether the fence has not passed yet (a wait would block)."""
+        return self._fence is not None and not self._fence.query()
 
     def wait(self):
         """Fence wait (ref: render_window.rs:193); returns (image, stats)
@@ -192,7 +204,10 @@ class RenderWindow:
         self.rendering_function.resize(resolution)
 
     def render(self, render_device=None) -> int:
-        device = render_device or self.render_device
+        with span("frame", frame=self.frame_index):
+            return self._render(render_device or self.render_device)
+
+    def _render(self, device) -> int:
         scene = self._available_scene
         self._available_scene = None  # stolen (the MaybeUninit swap analog)
         tri_count = sum(
@@ -213,25 +228,27 @@ class RenderWindow:
                         device, scene.render_resources, self._scale_factor,
                         self.swapchain.resolution, self.device_mesh)
                 plan = rf.plan
-                image = quantize_unorm8(
-                    frame.color, opaque=self.composite_alpha == "opaque")
-                if self.device_mesh is not None:
-                    # every rank presents the whole image
-                    from tyleri_tpu_torch.parallel.sharding import (
-                        gather_rows,
-                    )
+                with span("present.enqueue"):
+                    image = quantize_unorm8(
+                        frame.color, opaque=self.composite_alpha == "opaque")
+                    if self.device_mesh is not None:
+                        # every rank presents the whole image
+                        from tyleri_tpu_torch.parallel.sharding import (
+                            gather_rows,
+                        )
 
-                    image = gather_rows(image, rf.frame_mesh,
-                                        self.swapchain.resolution[1])
-                image = _to_host(image)
-                stats = _to_host(frame.stats_vector())
-            fence = queue.fence()
+                        image = gather_rows(image, rf.frame_mesh,
+                                            self.swapchain.resolution[1])
+                    image = _to_host(image)
+                    stats = _to_host(frame.stats_vector())
+                    fence = queue.fence()
         finally:
             device.present_queues.push(queue)
 
         previous = self._using.pop(image_index, None)
         self._using[image_index] = _InFlight(frame, scene, plan, image,
-                                             stats, fence)
+                                             stats, fence, self.frame_index,
+                                             tri_count)
         if previous is not None:
             self._present(device, previous)
             previous.scene.clear()
@@ -240,20 +257,28 @@ class RenderWindow:
             self._available_scene = RenderScene()
 
         if self._pacer is not None:
-            self._pacer.wait()  # FIFO present: next refresh tick
+            with span("pace"):
+                self._pacer.wait()  # FIFO present: next refresh tick
         self.frame_index += 1
-        self.profiler.frame(tri_count)
         return image_index
 
     def _present(self, device, using: _InFlight) -> None:
         """Fence-wait a recycled frame, present its image and report its
         stats."""
-        img, stats = using.wait()
-        self._latest_image = img
-        if self.present_target is not None:
-            self.present_target(img)
-        self._report_stats(device, stats,
-                           current=using.plan == self.rendering_function.plan)
+        with span("present", frame=using.index):
+            if recording() and using.pending():
+                count("present.fence_pending")
+            with span("present.fence_wait"):
+                img, stats = using.wait()
+            self._latest_image = img
+            with span("present.target"):
+                if self.present_target is not None:
+                    self.present_target(img)
+                self.profiler.frame(using.triangles)
+            with span("present.feedback"):
+                self._report_stats(
+                    device, stats,
+                    current=using.plan == self.rendering_function.plan)
 
     def _report_stats(self, device, stats: np.ndarray, current: bool) -> None:
         """Report a frame's overflows (never dropped) and, if it ran under
@@ -273,13 +298,14 @@ class RenderWindow:
         """Drain all in-flight frames (the Drop behavior, ref:
         render_window.rs:226-233), oldest first; returns the last presented
         image."""
-        order = sorted(self._using.items(), key=lambda kv: (
-            (kv[0] - self.swapchain.last_acquired_image - 1)
-            % self.swapchain.image_count))
-        for _, using in order:
-            self._present(self.render_device, using)
-            using.scene.clear()
-        self._using.clear()
+        with span("flush"):
+            order = sorted(self._using.items(), key=lambda kv: (
+                (kv[0] - self.swapchain.last_acquired_image - 1)
+                % self.swapchain.image_count))
+            for _, using in order:
+                self._present(self.render_device, using)
+                using.scene.clear()
+            self._using.clear()
         return self.latest_image
 
     def __enter__(self) -> "RenderWindow":
