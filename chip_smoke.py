@@ -43,15 +43,19 @@ Phases, one printed line each or more; any failure exits non-zero:
    at 1920x1080, on phase 9's converged plan, at scale factors 1 and 2:
    where the UI drew, the frame equals the overlay-only frame (which holds
    to the f64 oracle within the golden budget), elsewhere the UI-free
-   frame, bit for bit; K3 on the frame's table with the UI's depth as its
-   incoming depth, bit-equal to its plain version; one K1+K2 and one K3
-   launch a frame; steady frame times with and without the overlay in
-   turns (the UI pass may read the host once a frame), and the UI pass's
-   host time;
+   frame, bit for bit; the UI pass's exact-raster kernel equal to its
+   plain loop on CPU copies of the frame's inputs, color and depth at
+   every pixel, and (scale 1) the kernel's time alone; K3 on the frame's
+   table with the UI's depth as its incoming depth, bit-equal to its plain
+   version; one K1+K2, one K3 and one exact-raster (UI) launch a frame;
+   steady frame times with and without the overlay in turns, and the UI
+   pass's host time;
 11. exact: exact mode (blend_parity="exact") for configs 1 and 2 and for
-   config 4 at 1920x1080 against the sequential oracle, no kernel
-   launched, config 4's deviation beside peel2's and the single layer's
-   from phase 8, and its frame's seconds;
+   config 4 at 1920x1080 against the sequential oracle, one launch of the
+   exact-raster kernel a frame and no other; for configs 1 and 2 the
+   kernel equal to its plain loop on CPU copies of the frame's inputs, at
+   every pixel; config 4's deviation beside peel2's and the single
+   layer's from phase 8, and its frame's seconds;
 12. depth-states: config 2 at 800x600 under ALWAYS, NEVER, the test off
    and the write off (LESS_OR_EQUAL), resolved by the last-passing
    resolve, against the oracle that blends each pixel's surviving fragment
@@ -130,6 +134,7 @@ the script fails before printing any of them.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -186,6 +191,107 @@ def random_table(rng, T, D):
     mvps[:, 3, 2] = -0.4
     mvps[:, 3, 3] = 2.0
     return corner, draw, tex, valid, mvps.reshape(D, 16)
+
+
+# the exact-raster kernel's operations, counted from csrc/raster_exact.cu,
+# for its bound: a tile's cull test of one triangle's draw region (6
+# compares, 2 adds); one pixel's visit of a triangle whose region holds it
+# (two planes, 4 each; e2, 2; three edge compares); a covered fragment's
+# least (z plane 4, range 2, compare 1, inv_w plane and guard 5, vertex
+# color 4 x 6, blend 4 x 5)
+EXACT_CULL_OPS = 8
+EXACT_VISIT_OPS = 13
+EXACT_FRAG_OPS = 56
+EXACT_TILE = 16
+EXACT_PX_BYTES = 40   # a pixel's color and depth, read once, written once
+
+
+def on_cpu(x):
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+@contextlib.contextmanager
+def capture(module, name):
+    """``module.name`` wrapped while inside: each call's positional and
+    keyword arguments (tensors cloned before the call, which may draw into
+    them in place) and its result (tensors cloned), in the yielded list."""
+    plain = getattr(module, name)
+    calls = []
+
+    def copy(v):
+        if isinstance(v, tuple):
+            return tuple(copy(x) for x in v)
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    def wrapped(*a, **k):
+        args, kw = copy(a), {key: copy(v) for key, v in k.items()}
+        out = plain(*a, **k)
+        calls.append((args, kw, copy(out)))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, plain)
+
+
+def twin_equal(what, fn, call) -> float:
+    """``fn``, whose CPU path is the exact rasterizer's plain loop, on CPU
+    copies of a card call's inputs must give that call's (color, depth),
+    bit for bit at every pixel.  Returns the loop's seconds."""
+    args, kw, got = call
+    t0 = time.perf_counter()
+    want = fn(*map(on_cpu, args), **{k: on_cpu(v) for k, v in kw.items()})
+    seconds = time.perf_counter() - t0
+    gc, gd = (t.cpu() for t in got)
+    wc, wd = want
+    n_c, n_d = int((gc != wc).any(-1).sum()), int((gd != wd).sum())
+    if n_c or n_d or torch.isnan(wc).any() or torch.isnan(wd).any():
+        raise AssertionError(f"{what}: the exact-raster kernel differs from "
+                             f"its plain loop at {n_c} px in color and "
+                             f"{n_d} in depth")
+    return seconds
+
+
+def exact_bound(launch) -> dict:
+    """The exact-raster kernel's bound for the inputs of one launch: bytes
+    of each pixel of a tile that some draw region meets (its color and
+    depth, read and written once), of each triangle's row, draw region and
+    vertex-color planes, and of the texels of the slots it samples;
+    operations of every tile's cull, every pixel's visit of a triangle
+    whose region holds it, and (at least) each covered fragment."""
+    from tyleri_tpu_torch.ops import setup as S
+
+    t = launch.tensors
+    H, W = t["depth"].shape
+    regions = t["regions"].cpu().numpy().astype(np.int64)
+    x0, y0, x1, y1 = regions.T
+    live = (x0 < x1) & (y0 < y1)
+    tiles = np.zeros(((H + EXACT_TILE - 1) // EXACT_TILE,
+                      (W + EXACT_TILE - 1) // EXACT_TILE), bool)
+    for a, b, c, d in regions[live]:
+        tiles[b // EXACT_TILE:(d - 1) // EXACT_TILE + 1,
+              a // EXACT_TILE:(c - 1) // EXACT_TILE + 1] = True
+    rows = np.minimum(EXACT_TILE, H - EXACT_TILE * np.arange(tiles.shape[0]))
+    cols = np.minimum(EXACT_TILE, W - EXACT_TILE * np.arange(tiles.shape[1]))
+    pixels = int((tiles * np.outer(rows, cols)).sum())
+    visits = int(((x1 - x0) * (y1 - y0))[live].sum())
+    ch = t["channels"].cpu()
+    area = (ch[:, S.CH_TWOA].abs() / 2).numpy()
+    frags = float(np.minimum(area, (x1 - x0) * (y1 - y0))[live].sum())
+    T = ch.shape[0]
+    slots = np.unique((ch[:, S.CH_META].to(torch.int32)
+                       & S.META_TEX_MASK).numpy()[live])
+    offs, ws, hs = (x.cpu().numpy() for x in t["tables"])
+    slots = np.clip(slots, 0, len(offs) - 1)
+    texel_bytes = int(sum(ws[i] * hs[i] for i in slots)) * 64
+    row_bytes = bytes_of(ch, t["regions"]) + (
+        bytes_of(t["vc"]) if t["vc"] is not None else 0)
+    chunks = -(-T // EXACT_TILE ** 2) * EXACT_TILE ** 2
+    return bound(EXACT_PX_BYTES * pixels + row_bytes + texel_bytes,
+                 EXACT_CULL_OPS * tiles.size * chunks
+                 + EXACT_VISIT_OPS * visits + EXACT_FRAG_OPS * frags)
 
 
 def setup_equal(a, b) -> bool:
@@ -675,12 +781,11 @@ def converge(win, rig, t, max_frames=160, orbit=()):
     return frames, time.perf_counter() - t0, seen
 
 
-def steady(win, rig, t, messages, frames=30, syncs_per_frame=0):
+def steady(win, rig, t, messages, frames=30):
     """The converged plan's steady frame time: CUDA events ordered through
     the device's queue pool and the host clock around ``frames`` renders,
-    with the card's sync debug mode on; at most ``syncs_per_frame``
-    synchronizing calls a frame (the UI pass reads its triangles' boxes
-    once).  Returns (ms, host_ms, image)."""
+    with the card's sync debug mode on and no synchronizing call.  Returns
+    (ms, host_ms, image)."""
     rf = win.rendering_function
     pool = win.render_device.present_queues
     n_msgs = len(messages)
@@ -710,7 +815,7 @@ def steady(win, rig, t, messages, frames=30, syncs_per_frame=0):
                 if m.message_id == "capacity-overflow"]
     if overflow:
         raise AssertionError(f"overflow after convergence: {overflow[0]}")
-    if len(syncs) > syncs_per_frame * frames:
+    if syncs:
         raise AssertionError(f"the frame loop synchronized {len(syncs)} times "
                              f"in {frames} frames: {syncs[0].message}")
     if rf.plan != plan_before:
@@ -888,16 +993,18 @@ def ui_overlay(device, seed=11):
     return [(*quads(panel), white), (*quads(glyphs), glyph)]
 
 
-def phase_ui(sponza, launches, resolution):
+def phase_ui(sponza, launches, resolution, records):
     """The UI overlay over config 5 at full size, after the plan converged
     (phase 9's window): at scale factors 1 and 2, the frame decomposes into
     the overlay-only frame (where the UI drew; it holds to the oracle) and
-    the UI-free frame (elsewhere, bit for bit); K3 on that frame's table
+    the UI-free frame (elsewhere, bit for bit), and the UI pass's kernel
+    equals its plain loop on CPU copies of that frame's inputs; the
+    kernel's time alone on the scale-1 overlay; K3 on that frame's table
     with the UI's depth as its incoming depth equals its plain version; the
     steady frame time with and without the overlay, in turns."""
     import tyleri_tpu_torch as tt
-    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
-    from tyleri_tpu_torch.rendering import forward
+    from tyleri_tpu_torch.ops import raster_cuda, raster_exact, setup_cuda
+    from tyleri_tpu_torch.rendering import forward, passes
     from tyleri_tpu_torch.testing.scene_oracle import ui_oracle
 
     dev, rig, win, messages = sponza
@@ -923,16 +1030,26 @@ def phase_ui(sponza, launches, resolution):
             dev.present_queues.push(q)
         return frame, scene
 
+    loop_s = {}
     for scale in (1.0, 2.0):
         setup_cuda.reset_launches()
         raster_cuda.reset_launches()
+        raster_exact.reset_launches()
         both, _ = record(True, True, scale)
         counted = dict(raster_cuda.variant_launches,
-                       fused_setup=setup_cuda.launches)
-        if counted != dict(base=1, peel2=0, counts=0, fused_setup=1):
+                       fused_setup=setup_cuda.launches,
+                       raster_exact=raster_exact.launches)
+        if counted != dict(base=1, peel2=0, counts=0, fused_setup=1,
+                           raster_exact=1):
             raise AssertionError(f"UI frame launches {counted}")
         mesh, _ = record(True, False, scale)
-        alone, ui_scene = record(False, True, scale)
+        with capture(forward, "ui_pass") as calls, \
+                capture(raster_exact, "kernel_launch") as kernel:
+            alone, ui_scene = record(False, True, scale)
+        loop_s[scale] = twin_equal(f"ui scale {scale:g}", passes.ui_pass,
+                                   calls[0])
+        if scale == 1.0:
+            launch = kernel[0][2]
         drew = both.order == 0
         if not torch.equal(drew, alone.depth < 1.0):
             raise AssertionError("the UI's pixels differ from the overlay's")
@@ -960,9 +1077,29 @@ def phase_ui(sponza, launches, resolution):
         log("ui", f"scale {scale:g}: {int(drew.sum())} px of UI "
             f"({float(drew.float().mean()):.2%}) over sponza at {W}x{H}; the "
             f"frame equals the overlay-only frame there and the UI-free frame "
-            f"elsewhere, bit for bit; the overlay {bad:.4%} px more than 1e-3 "
-            f"off the f64 oracle, its coverage {cover:.4%} px (budget "
+            f"elsewhere, bit for bit; the UI pass's kernel equals its plain "
+            f"loop on CPU copies of its inputs at every pixel (the loop "
+            f"{loop_s[scale]:.2f} s); the overlay {bad:.4%} px more than "
+            f"1e-3 off the f64 oracle, its coverage {cover:.4%} px (budget "
             f"{BUDGET:.2%}; {oracle_s:.1f} s); launches {counted}")
+
+    # the kernel alone on the scale-1 overlay: each call one launch
+    raster_exact.reset_launches()
+    k_ms = graph_ms(launch, reps=20)
+    b2b_ms = cuda_ms(launch, reps=20)
+    if raster_exact.launches != 2 * 21:
+        raise AssertionError(f"{raster_exact.launches} exact-raster launches "
+                             f"in 42 calls")
+    records["raster_exact"] = dict(
+        max_abs_err=0.0, ms=k_ms, back_to_back_ms=b2b_ms,
+        plain_ms=1e3 * loop_s[1.0], library_ms=None,
+        **bound_fields(exact_bound(launch)))
+    log("ui", f"the exact-raster kernel on the scale-1 overlay ("
+        f"{launch.tensors['channels'].shape[0]} triangles): {k_ms:.4f} ms by "
+        f"CUDA graph ({b2b_ms:.4f} ms back to back), its plain loop "
+        f"{1e3 * loop_s[1.0]:.1f} ms on the host's CPU; "
+        f"{share(records['raster_exact'])}")
+    del launch
 
     # K3 resolving against the UI's depth (scale 1) on this frame's table
     _, sp = pass_inputs(dev, rig, resolution, 0.0)
@@ -992,7 +1129,7 @@ def phase_ui(sponza, launches, resolution):
     del binned, sp, got, want
 
     # steady frames with and without the overlay, in turns; the UI pass's
-    # host time (its one synchronizing read waits for the stream)
+    # host time
     ui_host = []
     plain_ui_pass = forward.ui_pass
 
@@ -1009,12 +1146,14 @@ def phase_ui(sponza, launches, resolution):
             frames = WithOverlay(rig, overlay if which == "overlay" else [])
             setup_cuda.reset_launches()
             raster_cuda.reset_launches()
-            ms, host_ms, _ = steady(win, frames, 0.0, messages,
-                                    syncs_per_frame=int(which == "overlay"))
+            raster_exact.reset_launches()
+            ms, host_ms, _ = steady(win, frames, 0.0, messages)
             n = 3 + 30 + 1
             counted = dict(raster_cuda.variant_launches,
-                           fused_setup=setup_cuda.launches)
-            if counted != dict(base=n, peel2=0, counts=0, fused_setup=n):
+                           fused_setup=setup_cuda.launches,
+                           raster_exact=raster_exact.launches)
+            if counted != dict(base=n, peel2=0, counts=0, fused_setup=n,
+                               raster_exact=n if which == "overlay" else 0):
                 raise AssertionError(f"ui {which}: launches {counted} for "
                                      f"{n} frames")
             key = f"ui_{which}"
@@ -1027,20 +1166,22 @@ def phase_ui(sponza, launches, resolution):
         (a, ha), (b, hb) = times[which]
         log("ui", f"config 5 {which}: steady {a:.3f} and {b:.3f} ms/frame by "
             f"CUDA events (in turns), {ha:.3f} and {hb:.3f} ms/frame by host "
-            f"clock; one K1+K2 and one K3 base launch a frame")
+            f"clock; one K1+K2 and one K3 base launch a frame, and one "
+            f"exact-raster launch under the overlay")
     log("ui", f"the UI pass's host time {1e3 * np.mean(ui_host):.3f} ms a "
-        f"frame (mean of {len(ui_host)}; its one synchronizing read waits "
-        f"for the frames before it)")
+        f"frame (mean of {len(ui_host)})")
 
 
 def phase_exact(build_device, launches, resolution, config4, n_instances=100,
                 max_seconds=60.0):
     """Exact mode: configs 1 and 2, then config 4 at 1920x1080, against the
-    sequential oracle; no kernel launch.  ``config4`` = (deviations of
-    peel2 and the single layer, the 1080p sequential oracle image) from
-    phase 8."""
+    sequential oracle; one launch of the exact kernel a frame, no other
+    kernel; for configs 1 and 2 the kernel equal to its plain loop on CPU
+    copies of the frame's inputs.  ``config4`` = (deviations of peel2 and
+    the single layer, the 1080p sequential oracle image) from phase 8."""
     import tyleri_tpu_torch as tt
-    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
+    from tyleri_tpu_torch.ops import raster_cuda, raster_exact, setup_cuda
+    from tyleri_tpu_torch.rendering import passes
     from tyleri_tpu_torch.testing.scene_oracle import (
         mismatch_fraction,
         scene_oracle_u8,
@@ -1054,9 +1195,17 @@ def phase_exact(build_device, launches, resolution, config4, n_instances=100,
                               present_mode="immediate", blend_parity="exact")
         setup_cuda.reset_launches()
         raster_cuda.reset_launches()
-        img = render_frames(win, rig, [t])
-        if (setup_cuda.launches, raster_cuda.launches()) != (0, 0):
-            raise AssertionError(f"exact {name} launched kernels")
+        raster_exact.reset_launches()
+        with capture(passes, "rasterize_exact") as calls:
+            img = render_frames(win, rig, [t])
+        counted = (setup_cuda.launches, raster_cuda.launches(),
+                   raster_exact.launches)
+        if counted != (0, 0, 1):
+            raise AssertionError(f"exact {name} launched {counted} (K1+K2, "
+                                 f"K3, exact)")
+        loop_s = twin_equal(f"exact {name}", raster_exact.rasterize_exact,
+                            calls[0])
+        n_tris = calls[0][0][2].shape[0]
         scene = tt.RenderScene()
         rig.fill(scene, t)
         want = scene_oracle_u8(dev, scene.render_resources,
@@ -1068,7 +1217,9 @@ def phase_exact(build_device, launches, resolution, config4, n_instances=100,
                                  f"sequential oracle")
         log("exact", f"{name} {rig.resolution[0]}x{rig.resolution[1]}: "
             f"{bad:.4%} px off the sequential oracle (budget {BUDGET:.2%}); "
-            f"no kernel launched")
+            f"one exact kernel launch over {n_tris} triangle rows, equal to "
+            f"its plain loop on CPU copies at every pixel (the loop "
+            f"{loop_s:.2f} s)")
 
     off, want = config4
     dev = build_device()
@@ -1077,12 +1228,15 @@ def phase_exact(build_device, launches, resolution, config4, n_instances=100,
                           present_mode="immediate", blend_parity="exact")
     setup_cuda.reset_launches()
     raster_cuda.reset_launches()
+    raster_exact.reset_launches()
     t0 = time.perf_counter()
     img = render_frames(win, rig, [0.5])
     seconds = time.perf_counter() - t0
     launches["exact"] = dict(raster_cuda.variant_launches,
-                             fused_setup=setup_cuda.launches)
-    if (setup_cuda.launches, raster_cuda.launches()) != (0, 0):
+                             fused_setup=setup_cuda.launches,
+                             raster_exact=raster_exact.launches)
+    if (setup_cuda.launches, raster_cuda.launches(),
+            raster_exact.launches) != (0, 0, 1):
         raise AssertionError(f"exact config 4 launched {launches['exact']}")
     bad = mismatch_fraction(img, want, 1)
     if bad > BUDGET:
@@ -1094,7 +1248,7 @@ def phase_exact(build_device, launches, resolution, config4, n_instances=100,
         f"{rig.triangle_count} tris in {n_instances} draws, one frame in "
         f"{seconds:.2f} s: {bad:.4%} px more than 1 u8 off the sequential "
         f"oracle, against {off['auto']:.4%} with peel2 and {off['fast']:.4%}"
-        f" with one layer (phase 8); no kernel launched")
+        f" with one layer (phase 8); one exact kernel launch")
 
 
 DEPTH_STATES = {
@@ -1659,6 +1813,7 @@ KERNEL_SYMBOLS = {
     "rasterize_visibility": "visibility_kernel<(bool)0, (bool)0>",
     "rasterize_visibility_peel2": "visibility_kernel<(bool)1, (bool)0>",
     "rasterize_visibility_counts": "visibility_kernel<(bool)0, (bool)1>",
+    "raster_exact": "raster_exact_kernel",
     "gather_rows": "gather_rows_kernel",
     "fixed_grid": "fixed_grid_kernel",
     "fixed_cost": "fixed_cost_kernel",
@@ -2169,7 +2324,7 @@ def main() -> int:
     sponza = phase("config5", phase_sponza, build_device, SPONZA_RES,
                    launches)
     image_1080 = sponza[2].latest_image.copy()   # for phase 15's encode
-    phase("ui", phase_ui, sponza, launches, SPONZA_RES)
+    phase("ui", phase_ui, sponza, launches, SPONZA_RES, records)
     del sponza
     torch.cuda.empty_cache()
     phase("exact", phase_exact, build_device, launches, SPONZA_RES, config4)
@@ -2203,6 +2358,10 @@ def main() -> int:
              source="tyleri_tpu_torch/csrc/visibility.cu", replaces=K3,
              launches=path_sum("counts"),
              **records["rasterize_visibility_counts"]),
+        dict(name="raster_exact", route="cuda",
+             source="tyleri_tpu_torch/csrc/raster_exact.cu",
+             replaces="none (tyleri_tpu/ops/raster_exact.py is plain jnp)",
+             launches=path_sum("raster_exact"), **records["raster_exact"]),
     ] + [dict(name=name, route="cuda",
               source=f"tyleri_tpu_torch/csrc/{source}", replaces=replaces,
               launches=launches["probes"][name], **records[name])

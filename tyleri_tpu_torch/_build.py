@@ -216,6 +216,19 @@ def _bind(lib) -> None:
         p,                        # tile order (scratch, i32 [ntiles])
         p,                        # stream
     ]
+    lib.ty_raster_exact.restype = i
+    lib.ty_raster_exact.argtypes = [
+        p, p, p, i,               # channels, draw regions, vertex-color
+                                  # planes (or null), T
+        p, p, p, p, i,            # texel quads, texture offsets, widths,
+                                  # heights, slots
+        p, p, i, i,               # color, depth (in place), fb_w, fb_h
+        i, i, i,                  # compare, depth write, d16
+        i, i, i, i, i, i, i,      # blend: enable, src/dst color factor,
+                                  # color op, src/dst alpha factor, alpha op
+        i,                        # write mask bits
+        p,                        # stream
+    ]
     maps = [p] * 7                # up to 7 output maps, null past the last
     lib.ty_gather_rows.restype = i
     lib.ty_gather_rows.argtypes = [p, p, i, i, i, p, p, p]
