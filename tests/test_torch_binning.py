@@ -18,6 +18,8 @@ from tyleri_tpu.ops import setup as jsetup
 from tyleri_tpu_torch.ops import binning as tbinning
 from tyleri_tpu_torch.ops import setup as tsetup
 
+from test_torch_setup import order_values, port_channels
+
 FB_W, FB_H, TILE = 192, 128, 8
 GRID_W, GRID_H = FB_W // TILE, FB_H // TILE
 
@@ -46,9 +48,11 @@ def setup_table(seed=5, T=1500):
 
 
 def to_torch(su):
-    return tsetup.TriangleSetup(
-        *(torch.from_numpy(np.array(getattr(su, f)))
-          for f in ("valid", "channels", "tile_lo", "tile_hi")))
+    """The JAX package's setup table in the port's encoding."""
+    valid, tile_lo, tile_hi = (torch.from_numpy(np.array(getattr(su, f)))
+                               for f in ("valid", "tile_lo", "tile_hi"))
+    return tsetup.TriangleSetup(valid, port_channels(su.channels), tile_lo,
+                                tile_hi)
 
 
 CAPS = {
@@ -77,7 +81,7 @@ def test_bin_triangles_matches_jax(caps):
         assert int(got.overflow) > 0
 
     ts = got.tile_start.numpy()
-    g_ch = got.entry_channels.numpy()
+    g_ch = order_values(got.entry_channels)
     w_ch = np.asarray(want.entry_channels)
     for tile in range(GRID_W * GRID_H):
         seg = slice(ts[tile], ts[tile + 1])
@@ -89,7 +93,7 @@ def test_bin_triangles_matches_jax(caps):
     np.testing.assert_array_equal(
         got.entry_tile.numpy()[:ts[-1]], np.asarray(want.entry_tile)[:ts[-1]])
     nb = int(got.num_broad)
-    np.testing.assert_array_equal(got.broad_channels.numpy()[:nb],
+    np.testing.assert_array_equal(order_values(got.broad_channels)[:nb],
                                   np.asarray(want.broad_channels)[:nb])
 
 
@@ -115,13 +119,13 @@ def test_bin_triangles_gathers_extra_rows_like_jax():
                                   grid_h=GRID_H, **caps)
     got = tbinning.bin_triangles(to_torch(su), torch.from_numpy(extra),
                                  grid_w=GRID_W, grid_h=GRID_H, **caps)
-    for b in (got, want):
+    for b, decode in ((got, order_values), (want, np.asarray)):
         n = int(np.asarray(b.tile_start)[-1])
         nb = int(b.num_broad)
         for rows, ch, cap in ((np.asarray(b.entry_extra),
-                               np.asarray(b.entry_channels), n),
+                               decode(b.entry_channels), n),
                               (np.asarray(b.broad_extra),
-                               np.asarray(b.broad_channels), nb)):
+                               decode(b.broad_channels), nb)):
             tri = ch[:cap, tsetup.CH_ORDER].astype(np.int64)
             assert cap > 0
             np.testing.assert_array_equal(rows[:cap], extra[tri])

@@ -83,6 +83,22 @@ def np_of(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def port_channels(ch) -> torch.Tensor:
+    """A JAX package table's channels in the port's encoding: each CH_ORDER
+    value as its int32 bit pattern (setup.encode_order)."""
+    out = torch.from_numpy(np.array(ch))
+    out[..., tsetup.CH_ORDER] = tsetup.encode_order(out[..., tsetup.CH_ORDER])
+    return out
+
+
+def order_values(ch) -> np.ndarray:
+    """The port's channels (a copy) with CH_ORDER decoded to the JAX
+    package's f32 draw-order values, which are exact below 2^24."""
+    out = np.array(np_of(ch))
+    out[..., tsetup.CH_ORDER] = out[..., tsetup.CH_ORDER].view(np.int32)
+    return out
+
+
 def plane_errors(got, want):
     """Per row, the largest plane error relative to the plane's magnitude
     over the evaluation domain (f64)."""
@@ -108,7 +124,7 @@ def check_setup(got, want, name):
     v_g = np_of(got.valid)
     n = len(v_g)   # a padded JAX kernel table is cut to the port's rows
     v_w = np_of(want.valid)[:n]
-    ch_g, ch_w = np_of(got.channels), np_of(want.channels)[:n]
+    ch_g, ch_w = order_values(got.channels), np_of(want.channels)[:n]
     live = v_g & v_w
     rel = np.where(live, plane_errors(ch_g, ch_w), 0.0)
     differ = (v_g != v_w) | (rel > RTOL)
@@ -250,7 +266,8 @@ def test_fused_setup_draw_mask_matches_pallas_kernel(draw_mod):
     live = check_setup(su_t, su_j, f"fused_setup draw_mod {draw_mod}")
     assert live.sum() > 30
     np.testing.assert_array_equal(
-        su_t.channels.numpy()[live, tsetup.CH_ORDER], np.nonzero(live)[0])
+        tsetup.decode_order(su_t.channels[:, tsetup.CH_ORDER]).numpy()[live],
+        np.nonzero(live)[0])
     with pytest.raises(ValueError):
         setup_cuda.fused_setup(
             t(corner), t(draw), t(tex), t(valid), t(mvps.reshape(D, 16)),
@@ -274,7 +291,8 @@ def test_fused_clip_subset_splice_matches_jax():
         MESH_PIPELINE_STATE, X, DIMS)
     N = np.asarray(su_j.valid).shape[0]
     su_in = tsetup.TriangleSetup(
-        valid=t(np.asarray(su_j.valid)), channels=t(np.asarray(su_j.channels)),
+        valid=t(np.asarray(su_j.valid)),
+        channels=port_channels(np.asarray(su_j.channels)),
         tile_lo=t(np.asarray(su_j.tile_lo)),
         tile_hi=t(np.asarray(su_j.tile_hi)))
     pad = N - T  # the JAX kernel's table is padded to its block size
@@ -288,9 +306,9 @@ def test_fused_clip_subset_splice_matches_jax():
     live = check_setup(got, want, "fused_clip_subset")
     assert live[N:].any()                  # real extra halves
     # both halves of a split carry the parent's draw order
-    np.testing.assert_array_equal(got.channels.numpy()[live, tsetup.CH_ORDER],
-                                  np.asarray(want.channels)[live,
-                                                            tsetup.CH_ORDER])
+    np.testing.assert_array_equal(
+        order_values(got.channels)[live, tsetup.CH_ORDER],
+        np.asarray(want.channels)[live, tsetup.CH_ORDER])
 
 
 def test_setup_lam_matches_jax():

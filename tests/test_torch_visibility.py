@@ -42,6 +42,8 @@ from tyleri_tpu_torch.ops.visibility import (
     rasterize_visibility_stream_reference,
 )
 
+from test_torch_setup import order_values, port_channels
+
 FB_W, FB_H = 256, 32
 TILE_W, TILE_H = 128, 8
 GRID = dict(grid_w=FB_W // TILE_W, grid_h=FB_H // TILE_H)
@@ -74,9 +76,12 @@ def binned_table(clip, uv, tex, scissor):
 
 
 def to_torch(b) -> BinnedEntries:
-    return BinnedEntries(**{
-        f: torch.from_numpy(np.array(getattr(b, f)))
-        for f in BinnedEntries._fields if getattr(b, f) is not None})
+    """The JAX package's binned table in the port's encoding."""
+    out = {f: torch.from_numpy(np.array(getattr(b, f)))
+           for f in BinnedEntries._fields if getattr(b, f) is not None}
+    for f in ("entry_channels", "broad_channels"):
+        out[f] = port_channels(out[f])
+    return BinnedEntries(**out)
 
 
 def depth_state(op, fmt=DepthFormat.D16_UNORM):
@@ -452,6 +457,8 @@ def test_pallas_early_exit_skips_the_same_sliver():
     W, H = SLIVER_W, SLIVER_H
     jb = {f: jnp.asarray(getattr(binned, f).numpy())
           for f in BinnedEntries._fields if getattr(binned, f) is not None}
+    for f in ("entry_channels", "broad_channels"):
+        jb[f] = jnp.asarray(order_values(getattr(binned, f)))
     jb = jbinning.BinnedEntries(broad_channels_cm=jb["broad_channels"].T, **jb)
     kw = dict(depth_state=depth_state(CompareOp.LESS_OR_EQUAL), **SLIVER_DIMS)
     scissor = jnp.asarray((0, 0, W, H), jnp.int32)

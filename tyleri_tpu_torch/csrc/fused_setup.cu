@@ -230,7 +230,8 @@ __device__ __forceinline__ bool setup_triangle(const Params& p, int t,
     const float tl_bits = (tl[0] + 2.0f * tl[1]) + 4.0f * tl[2];
     const float texf = table_valid ? (float)p.tri_tex[t] : -1.0f;
     ch[CH_META] = tl_bits * META_SCALE + floorf(fminf(fmaxf(texf, 0.0f), META_TEX_MASK));
-    ch[CH_ORDER] = (float)t;
+    // the order's int32 bits (setup.py::encode_order): exact past 2^24
+    ch[CH_ORDER] = __int_as_float(t);
 
     p.valid[t] = valid ? 1 : 0;
     p.crossed[t] = crossed ? 1 : 0;

@@ -61,6 +61,11 @@
 // Numerics: built with -fmad=false, rintf (round half to even, as
 // jnp.round), and the float top-left compares, so the maps are bit-equal to
 // rasterize_visibility_stream_reference (ops/visibility.py) on the card.
+// CH_ORDER carries an int32 draw order as its bit pattern (setup.py::
+// encode_order): read with __float_as_int and compared as an integer, so
+// orders past 2^24 stay apart (and small ones, denormal as floats, survive
+// a flush to zero); the order maps take it rounded to f32, as the plain
+// version's conversion does.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -101,8 +106,8 @@ struct Params {
 };
 
 struct Layer {
-    float zbuf, obuf, uw, vw, iw;
-    int owner, tex;
+    float zbuf, uw, vw, iw;
+    int obuf, owner, tex;   // obuf: the owner's draw order, -1 none
 };
 
 // A thread's pixels: PPT rows of one column.
@@ -145,7 +150,7 @@ __device__ __forceinline__ void resolve(const float* c, int eid, Column& col,
                                         bool le, bool d16) {
     const int meta = (int)c[CH_META];
     const int tl = meta >> META_TEX_BITS;
-    const float ord = c[CH_ORDER];
+    const int ord = __float_as_int(c[CH_ORDER]);
     const float twoa = c[CH_TWOA];
     const float e0x = c[CH_E0] * col.xf;
     const float e1x = c[CH_E1] * col.xf;
@@ -250,7 +255,7 @@ __global__ void visibility_kernel(Params p) {
         col.live[i] = inside && x_live && y >= p.scy && y < p.scy + p.sch;
         Layer& a = col.l1[i];
         a.zbuf = inside ? p.depth0[(size_t)y * p.fb_w + x] : -INFINITY;
-        a.obuf = -1.0f;
+        a.obuf = -1;
         a.owner = -1;
         a.uw = 0.0f; a.vw = 0.0f; a.iw = 1.0f;
         a.tex = 0;
@@ -321,7 +326,7 @@ __global__ void visibility_kernel(Params p) {
         const Layer& a = col.l1[i];
         p.owner[o] = a.owner;
         p.z[o] = a.zbuf;
-        p.order[o] = a.obuf;
+        p.order[o] = __int2float_rn(a.obuf);
         p.uw[o] = a.uw;
         p.vw[o] = a.vw;
         p.iw[o] = a.iw;
@@ -330,7 +335,7 @@ __global__ void visibility_kernel(Params p) {
             const Layer& b = col.l2[i];
             p.owner2[o] = b.owner;
             p.z2[o] = b.zbuf;
-            p.order2[o] = b.obuf;
+            p.order2[o] = __int2float_rn(b.obuf);
             p.uw2[o] = b.uw;
             p.vw2[o] = b.vw;
             p.iw2[o] = b.iw;

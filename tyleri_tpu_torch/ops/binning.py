@@ -35,7 +35,11 @@ from tyleri_tpu_torch.utils.profiling import span
 
 # per-level capacity fractions of spill_cap (the JAX package's tuning)
 _LEVEL_FRACS = (0.6, 0.2, 0.08, 0.03, 0.012)
-_DEAD = (1 << 32) - 1
+# the first sort's packed int64 key: (31 - scount) << 37 | (tw - 1) << 32 |
+# tri, a 32-bit triangle id; dead rows carry all ones, above every live key
+TRI_BITS = 32
+TRI_MASK = (1 << TRI_BITS) - 1
+DEAD_KEY = (1 << (TRI_BITS + 10)) - 1
 
 
 class BinnedEntries(NamedTuple):
@@ -80,6 +84,20 @@ def spill_rows(spill_cap: int, K: int = 32, level_caps=()) -> int:
     return total
 
 
+def pack_key(scount, tw, tri):
+    """The first sort's key of live narrow rows (int64 tensors): the most
+    spill first, then the widest tile span, then the triangle id."""
+    return (((31 - scount) << (TRI_BITS + 5)) | ((tw - 1) << TRI_BITS)
+            | tri)
+
+
+def unpack_key(key):
+    """(live, scount, tw, tri) of packed keys; a dead row unpacks to the
+    all-ones triangle id."""
+    return (key != DEAD_KEY, 31 - ((key >> (TRI_BITS + 5)) & 0x1F),
+            ((key >> TRI_BITS) & 0x1F) + 1, key & TRI_MASK)
+
+
 def bin_triangles(setup: TriangleSetup, extra=None, *, grid_w: int,
                   grid_h: int, entry_cap: int, max_tiles_per_tri: int = 32,
                   broad_cap: int = 256, spill_cap: int = 1 << 16,
@@ -99,7 +117,7 @@ def _bin_triangles(setup, extra, grid_w, grid_h, entry_cap,
     K = max_tiles_per_tri
     assert grid_w <= 256 and grid_h <= 256, "packed key needs 8-bit tiles"
     assert K <= 32, "packed key carries scount/tw in 5 bits each"
-    assert T < (1 << 21), "packed key carries the triangle id in 21 bits"
+    assert T < TRI_MASK, f"packed key carries triangle ids in {TRI_BITS} bits"
 
     with span("bin.sort"):
         tx0, ty0 = setup.tile_lo[:, 0].long(), setup.tile_lo[:, 1].long()
@@ -120,28 +138,24 @@ def _bin_triangles(setup, extra, grid_w, grid_h, entry_cap,
         level_demand = torch.stack([(scount >= (1 << j)).sum()
                                     for j in range(len(caps))])
 
-        # key = (31-scount)<<26 | (tw-1)<<21 | tri  (dead rows: all ones)
+        # key = (31-scount)<<37 | (tw-1)<<32 | tri  (dead rows: all ones)
         # opA = zmin<<16 | ty0<<8 | tx0
-        twc = torch.clamp(tw, 1, K)
-        key = ((31 - scount) << 26) | ((twc - 1) << 21) | tri_ids
-        key = torch.where(is_narrow, key, torch.full_like(key, _DEAD))
+        key = pack_key(scount, torch.clamp(tw, 1, K), tri_ids)
+        key = torch.where(is_narrow, key, torch.full_like(key, DEAD_KEY))
         opA = ((torch.clamp(zmin_q, 0, 65535) << 16)
                | (torch.clamp(ty0, 0, 255) << 8) | torch.clamp(tx0, 0, 255))
         vcap = min(valid_cap, entry_cap) if valid_cap else T
         n_pad = max(max(vcap, max(caps)) - T, 0)
         if n_pad:
-            key = torch.cat([key, torch.full((n_pad,), _DEAD,
+            key = torch.cat([key, torch.full((n_pad,), DEAD_KEY,
                                              dtype=torch.int64, device=dev)])
             opA = torch.cat([opA, opA.new_zeros((n_pad,))])
         key, perm = torch.sort(key)
         opA = opA[perm]
 
         def unpack(cap):
-            k, a = key[:cap], opA[:cap]
-            live = k != _DEAD
-            scnt = 31 - ((k >> 26) & 0x1F)
-            twl = ((k >> 21) & 0x1F) + 1
-            tril = k & ((1 << 21) - 1)
+            a = opA[:cap]
+            live, scnt, twl, tril = unpack_key(key[:cap])
             return live, scnt, twl, tril, a >> 16, (a >> 8) & 0xFF, a & 0xFF
 
     with span("bin.dense"):

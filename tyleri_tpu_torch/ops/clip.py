@@ -29,7 +29,7 @@ class ClippedTriangles(NamedTuple):
     uv: torch.Tensor         # f32 [T + X, 3, 2]
     tex_id: torch.Tensor     # i32 [T + X]
     valid: torch.Tensor      # bool [T + X]
-    order: torch.Tensor      # f32 [T + X] original draw order
+    order: torch.Tensor      # i32 [T + X] original draw order
     overflow: torch.Tensor   # i32 [] crossers culled for capacity
     crossings: torch.Tensor  # i32 [] near-plane crossings seen
 
@@ -117,7 +117,7 @@ def near_clip_triangles(clip, uv, tex_id, valid, *, extra_cap: int
     T = clip.shape[0]
     X = extra_cap
     dev = clip.device
-    order = torch.arange(T, dtype=torch.float32, device=dev)
+    order = torch.arange(T, dtype=torch.int32, device=dev)
     n_in = (clip[..., 2] >= 0.0).to(torch.int32).sum(dim=1)
     needs = valid & (n_in > 0) & (n_in < 3)
     src_c, live, n_needs = compact_slots(needs, X)
@@ -161,7 +161,7 @@ def near_cull_triangles(clip, uv, tex_id, valid, *, extra_cap: int
         tex_id=torch.cat([tex_id, tex_id.new_zeros((X,))]),
         valid=torch.cat([valid & (n_in == 3),
                          torch.zeros((X,), dtype=torch.bool, device=dev)]),
-        order=torch.arange(T + X, dtype=torch.float32, device=dev),
+        order=torch.arange(T + X, dtype=torch.int32, device=dev),
         overflow=n_needs,
         crossings=n_needs,
     )

@@ -32,7 +32,7 @@ CH_INVW = 12   # 1/w plane
 CH_UW = 15     # u/w plane
 CH_VW = 18     # v/w plane
 CH_META = 21   # (top-left bits << META_TEX_BITS) | texture slot, exact in f32
-CH_ORDER = 22  # draw order (depth-tie arbitration), exact below 2^24
+CH_ORDER = 22  # draw order (depth-tie arbitration): an int32's bit pattern
 CH_ZMIN = 23   # conservative window-z lower bound in D16 quanta
 NUM_CHANNELS = 24
 
@@ -64,6 +64,19 @@ class TriangleSetup(NamedTuple):
     # for interpolating extra attributes (the lit path's normals); None on
     # the fused path, which has no such attributes
     lam: torch.Tensor = None
+
+
+def encode_order(order: torch.Tensor) -> torch.Tensor:
+    """Draw orders (integer values of any dtype) -> the f32 CH_ORDER slot,
+    which carries each order's int32 bit pattern, so that orders stay exact
+    past 2^24.  Orders below 2^23 are denormal patterns, which a flush to
+    zero would merge: compare them only as ``decode_order`` gives them."""
+    return order.to(torch.int32).view(torch.float32)
+
+
+def decode_order(ch_order: torch.Tensor) -> torch.Tensor:
+    """The CH_ORDER slot (f32 [...]) -> int32 draw orders."""
+    return ch_order.view(torch.int32)
 
 
 def viewport_floats(viewport) -> list[float]:
@@ -220,7 +233,7 @@ def triangle_planes(sx, sy, sz, iw, u, v, tri_valid, tex_id, order, viewport,
         zA, zB, zC,                              # CH_Z
         *wP, *uP, *vP,                           # CH_INVW, CH_UW, CH_VW
         meta_pack(tex_id, topleft),              # CH_META
-        order,                                   # CH_ORDER
+        encode_order(order),                     # CH_ORDER
         _zmin_quantized(*sz.unbind(1), zA, zB, zC, fb_w, fb_h),  # CH_ZMIN
     ], dim=1)
     return TriangleSetup(
@@ -238,11 +251,12 @@ def setup_triangles(clip, uv, tex_id, tri_valid, viewport, scissor, *,
                     order=None, cull_mode=None, front_face=None
                     ) -> TriangleSetup:
     """clip f32 [T, 3, 4], uv f32 [T, 3, 2], tex_id i32 [T], tri_valid bool
-    [T]; viewport 6 floats and scissor 4 ints on the host.  ``order``
-    defaults to the row index (near-plane clipping passes the parent's)."""
+    [T]; viewport 6 floats and scissor 4 ints on the host.  ``order`` [T]
+    (integer values, below 2^31) defaults to the row index (near-plane
+    clipping passes the parent's)."""
     T = clip.shape[0]
     if order is None:
-        order = torch.arange(T, dtype=torch.float32, device=clip.device)
+        order = torch.arange(T, dtype=torch.int32, device=clip.device)
     in_front = torch.all(clip[..., 3] > W_EPS, dim=1)
     safe_clip = torch.where(in_front[:, None, None], clip,
                             torch.ones_like(clip))

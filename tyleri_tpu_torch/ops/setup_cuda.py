@@ -81,7 +81,7 @@ def fused_setup_reference(corners, tri_draw, tri_tex, tri_valid, mvps,
     sx, sy, sz, iw = S.viewport_transform(safe, viewport)
     # padding rows carry tex -1 into META (as the TPU corner table does)
     tex = torch.where(tri_valid, tri_tex, torch.full_like(tri_tex, -1))
-    order = torch.arange(T, dtype=torch.float32, device=corners.device)
+    order = torch.arange(T, dtype=torch.int32, device=corners.device)
     su = S.triangle_planes(
         sx, sy, sz, iw, corners[..., 3], corners[..., 4], valid0 & in_front,
         tex, order, viewport, scissor, tile_w=tile_w, tile_h=tile_h,

@@ -3,13 +3,15 @@
 
 Every tile resolves the visible entry per pixel; shading happens once per
 pixel afterwards (ops/shade.py).  Vulkan's submission-order semantics for
-depth ties come from the CH_ORDER channel: the winner is the lexicographic
-best of (quantized z, draw order) — min z, then the latest draw for
-LESS_OR_EQUAL or the earliest for LESS.  An exact tie in both (the two
-halves of a split triangle on a shared edge) goes to the entry the kernel
-processes last for LESS_OR_EQUAL and first for LESS; narrow entries run in
-table order, then the broad list, so that is the larger owner id for
-LESS_OR_EQUAL and the smaller for LESS.
+depth ties come from the CH_ORDER channel, an int32 draw order carried as
+its bit pattern (``setup.encode_order``) and compared as an integer: the
+winner is the lexicographic best of (quantized z, draw order) — min z,
+then the latest draw for LESS_OR_EQUAL or the earliest for LESS.  An exact
+tie in both (the two halves of a split triangle on a shared edge) goes to
+the entry the kernel processes last for LESS_OR_EQUAL and first for LESS;
+narrow entries run in table order, then the broad list, so that is the
+larger owner id for LESS_OR_EQUAL and the smaller for LESS.  The order
+maps give the owner's order as f32, rounded past 2^24.
 
 ``rasterize_visibility_stream_reference`` is the plain version of the CUDA
 kernel (ops/raster_cuda.py) in all three variants.  It streams every
@@ -142,11 +144,11 @@ class _Best:
 
     def pack(self, zq, order):
         # zq in [0, 1]: its f32 bits order like the values; orders are
-        # exact integers below 2^24
+        # int32 draw orders, at most 2^31 - 1
         # (+ 0.0 turns a -0.0 into +0.0, which the kernel treats as equal)
         zbits = (zq + 0.0).contiguous().view(torch.int32).to(torch.int64)
         o = order.to(torch.int64)
-        return (zbits << 24) | (((1 << 24) - 1 - o) if self.le else o)
+        return (zbits << 32) | (((1 << 32) - 1 - o) if self.le else o)
 
     def update(self, pix, key, eid):
         """Fold candidates (pixel index, key, owner id) into the winner,
@@ -238,7 +240,8 @@ def _winner_maps(binned: BinnedEntries, owner, depth0, fb_w: int, fb_h: int,
     return VisibilityBuffer(
         owner=hw(owner.to(torch.int32)),
         depth=hw(torch.where(won, zq, depth0) if write else depth0),
-        order=hw(torch.where(won, ch[:, S.CH_ORDER], -one)),
+        order=hw(torch.where(won, S.decode_order(ch[:, S.CH_ORDER]).to(
+            torch.float32), -one)),
         uw=hw(plane_or(S.CH_UW, zero)),
         vw=hw(plane_or(S.CH_VW, zero)),
         iw=hw(plane_or(S.CH_INVW, one)),
@@ -261,7 +264,7 @@ def rasterize_visibility_reference(
         frag, zq = _fragments(ch[:, None, :], xf, yf, live, d16)
         z0 = depth0[pix]
         passing = frag & ((zq <= z0) if le else (zq < z0))
-        order = ch[:, S.CH_ORDER][:, None].expand_as(zq)
+        order = S.decode_order(ch[:, S.CH_ORDER])[:, None].expand_as(zq)
         eid = eids[:, None].expand_as(zq)
         best.update(pix[passing], best.pack(zq[passing], order[passing]),
                     eid[passing])
@@ -324,7 +327,8 @@ def rasterize_visibility_last_passing(
             frag = frag & (zq < depth0[pix])
         elif test == "le":
             frag = frag & (zq <= depth0[pix])
-        order = ch[:, S.CH_ORDER].to(torch.int64)[:, None].expand_as(zq)
+        order = S.decode_order(ch[:, S.CH_ORDER]).to(torch.int64)[
+            :, None].expand_as(zq)
         eid = eids[:, None].expand_as(zq)
         key = (order[frag] << 32) | (low - eid[frag])
         best.scatter_reduce_(0, pix[frag], key, reduce="amax")
@@ -334,14 +338,15 @@ def rasterize_visibility_last_passing(
 
 
 class _Layer:
-    """One layer of the kernel's per-pixel state, [tiles, tile pixels]."""
+    """One layer of the kernel's per-pixel state, [tiles, tile pixels]; the
+    order as an int32 draw order."""
 
     FIELDS = ("owner", "z", "order", "uw", "vw", "iw", "tex")
 
     def __init__(self, z0):
         self.owner = torch.full_like(z0, -1, dtype=torch.int32)
         self.z = z0.clone()
-        self.order = torch.full_like(z0, -1.0)
+        self.order = torch.full_like(z0, -1, dtype=torch.int32)
         self.uw = torch.zeros_like(z0)
         self.vw = torch.zeros_like(z0)
         self.iw = torch.ones_like(z0)
@@ -370,7 +375,7 @@ def _stream_step(l1: _Layer, l2: _Layer | None, n: int, ch, eid, xf, yf,
     z = plane(S.CH_Z)
     zc = torch.clamp(z, 0.0, 1.0)
     zq = torch.round(zc * 65535.0) * S.INV_D16 if d16 else zc
-    order = c(S.CH_ORDER)
+    order = S.decode_order(c(S.CH_ORDER))
     frag = cov & (z == zc) & live
     z1, o1 = l1.z[:n], l1.order[:n]
     passing = frag & ((zq < z1) | ((zq == z1) & (
@@ -487,7 +492,8 @@ def rasterize_visibility_stream_reference(
 
     def buffer(layer):
         return VisibilityBuffer(owner=image(layer.owner), depth=image(layer.z),
-                                order=image(layer.order), uw=image(layer.uw),
+                                order=image(layer.order).to(torch.float32),
+                                uw=image(layer.uw),
                                 vw=image(layer.vw), iw=image(layer.iw),
                                 tex=image(layer.tex))
 

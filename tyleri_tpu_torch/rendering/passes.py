@@ -137,7 +137,7 @@ def _fused_clip_subset(su, crossed, clip_tables, mvps, viewport, scissor,
 
     cr0 = torch.stack([tform(sub[:, k, :3]) for k in range(3)], dim=1)
     main_c, main_u, extra_c, extra_u, nin = clip_work_set(cr0, sub[..., 3:5])
-    order = src.to(torch.float32)
+    order = src.to(torch.int32)
     su_sub = setup_triangles(
         torch.cat([main_c, extra_c]), torch.cat([main_u, extra_u]),
         torch.cat([tex, tex]),

@@ -286,6 +286,11 @@ class RenderWindow:
         Frame.stats_vector() on the host."""
         bin_of, tile_of, clip_of, clip_x, bin_dem, entry_dem = (
             int(v) for v in stats[:6])
+        # binning's work: live narrow triangles and entries placed (the
+        # entry demand, capped at the plan's entry_cap), one report a frame
+        count("bin.reported")
+        count("bin.live", bin_dem)
+        count("bin.entries", entry_dem)
         device.debug_messenger.check_overflow("bin-entries", bin_of)
         device.debug_messenger.check_overflow("tile-entries", tile_of)
         device.debug_messenger.check_overflow("clip-splits", clip_of)
