@@ -20,6 +20,11 @@ Phases, one printed line each or more; any failure exits non-zero:
 5. k3-counts: K3's visit counter on the same table, against the stream
    plain version: equal maps and equal counts per tile; the share of narrow
    entries the early exit skipped;
+5b. bin-emit: binning's entry-emit kernel against its plain version on CPU
+   copies of its inputs, key2, triangle ids and placed counts equal at
+   every row, on one sponza frame's first sort and at the statue cell's
+   sizes (28,055,740 triangles, 32.6M entries, seeded on the card); each
+   launch alone by CUDA graph and back to back, beside its byte bound;
 6. k3-peel2: K3's two-layer variant against the stream plain version, all
    14 maps bit-equal (owner ids included), on the binned table of one
    config-4 frame at 1920x1080 and on an adversarial overdraw table under
@@ -110,10 +115,11 @@ Phases, one printed line each or more; any failure exits non-zero:
    and the CUDA kernel events of K1+K2 and K3 peel2, which the nvcc-built
    library launches through ctypes.
 
-Every path (7 to 15 and the counter's measurement in 5) runs with the
-kernels' launch counts set to 0 just before it and read just after.  Each
-kernel's bound is the largest of its bytes (each input read once, each
-output written once, what this run's data needs) over 3.35 TB/s, its f32
+Every path (7 to 15, the counter's measurement in 5, the emit in 5b)
+runs with the kernels' launch counts set to 0 just before it and read
+just after.  Each kernel's bound is the largest of its bytes (each input
+read once, each output written once, what this run's data needs) over
+3.35 TB/s, its f32
 operations on the CUDA cores, each one instruction (the kernels build with
 -fmad=false), over 33.5 T/s, half the 67 TFLOP/s that counts an FMA as
 two, and its tensor-core flops over 989 TFLOP/s (bf16) or 495 (TF32: f32
@@ -167,6 +173,11 @@ K3_OPS = {"base": 29, "counts": 29, "peel2": 35}
 K3_MAPS = 7        # owner, z, order, uw, vw, iw, tex: 4 bytes a pixel each
 ENTRY_BYTES = 96   # 24 f32 channels
 DRAW_MODS = ((2, 1), (3, 2))   # K1+K2's draw masks checked in phase 3
+# the statue cell's sizes (benchmark/configs/lucy-28m-1080p.json): its
+# triangles, and the entries binning places a frame (the binning.entries
+# metric's reading)
+STATUE_TRIS = 28_055_740
+STATUE_ENTRIES = 32_605_000
 
 
 def log(phase: str, msg: str) -> None:
@@ -571,6 +582,103 @@ def phase_visibility(device, rf, sp, resolution, records):
     return binned, kw, depth0, su
 
 
+def emit_bound(kw) -> dict:
+    """The emit kernel's bound: bytes of the key and opA rows each segment
+    reads (16 B a row; a level's covers each read the level's prefix), of
+    every row of the list written (key2 and the triangle id, 16 B) and of
+    the two counts."""
+    from tyleri_tpu_torch.ops.binning import emit_segments
+
+    segs = emit_segments(kw["vcap"], kw["caps"], kw["entry_cap"], kw["K"])
+    read = sum(rows for _, rows, cover in segs if cover >= 0)
+    written = sum(rows for _, rows, _ in segs)
+    return bound_fields(bound(16 * read + 16 * written + 16, 0))
+
+
+def statue_emit_inputs(device, kw, T=STATUE_TRIS, entries=STATUE_ENTRIES):
+    """The emit's inputs at the statue's sizes, seeded on the card: T live
+    rows whose spill counts give ``entries`` entries (one in eight spills
+    once, one in seventy-one three times: 2x1, 1x2 and 2x2 tile boxes),
+    random tile origins and zmin; the first sort of their keys; the spill
+    levels and entry cap as the frame plan's fits would set them from the
+    demands (1.25x, ``forward._fit``), valid_cap off."""
+    from tyleri_tpu_torch.ops import binning as B
+    from tyleri_tpu_torch.rendering.forward import _GRANULE, _fit
+
+    g = torch.Generator(device=device).manual_seed(0)
+    u = torch.rand(T, generator=g, device=device)
+    p3 = (entries - T) / T / 3 / 10          # a tenth of the spill's rows
+    scount = torch.where(u < p3, 3, torch.where(u < (entries - T) / T
+                                                - 2 * p3, 1, 0))
+    tw = torch.where(scount == 3, 2, torch.where(
+        (scount == 1) & (u < 0.5 * (entries - T) / T), 2, 1))
+    gw, gh = kw["grid_w"], kw["ntiles"] // kw["grid_w"]
+    tx = torch.randint(0, gw - 1, (T,), generator=g, device=device)
+    ty = torch.randint(0, gh - 1, (T,), generator=g, device=device)
+    zq = torch.randint(0, 65536, (T,), generator=g, device=device)
+    key = B.pack_key(scount, tw, torch.arange(T, device=device))
+    key, perm = torch.sort(key)
+    opA = ((zq << 16) | (ty << 8) | tx)[perm]
+    demand = [int((scount >= (1 << j)).sum()) for j in range(5)]
+    caps = [max(_fit(d, 1.25, 512), 512) for d in demand]
+    spill = sum(cap * (min(2 * lo, 32) - lo)
+                for cap, lo in zip(caps, (1, 2, 4, 8, 16)))
+    entry_cap = min(T + spill, _fit(int(scount.sum()) + T, 1.25, _GRANULE))
+    return key, opA, dict(kw, T=T, K=32, vcap=T, caps=caps,
+                          entry_cap=entry_cap)
+
+
+def phase_bin_emit(device, rf, sp, records, launches):
+    """The entry-emit kernel against its plain version, bit for bit, on
+    CPU copies of its inputs: on one sponza frame's first sort (captured
+    from ``binned_pass``) and at the statue's sizes (``statue_emit_inputs``);
+    each launch alone by CUDA graph and back to back, beside its bound."""
+    from tyleri_tpu_torch.ops import binning as B
+
+    with capture(B, "emit_entries") as calls:
+        binned_pass(rf, sp)
+    (key, opA), kw, _ = calls[-1]
+    cases = {"sponza": (key, opA, kw)}
+    cases["statue"] = statue_emit_inputs(device, {
+        k: kw[k] for k in ("grid_w", "ntiles")})
+    B.reset_launches()
+    for name, (key, opA, kw) in cases.items():
+        got = B.emit_entries(key, opA, **kw)
+        t0 = time.perf_counter()
+        want = B.emit_entries(key.cpu(), opA.cpu(), **kw)
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        for what, g, w in zip(("key2", "tri", "dense", "spill"), got, want):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"bin-emit {name}: {what} differs from "
+                                     f"its plain version at "
+                                     f"{int((g.cpu() != w).sum())} rows")
+        key2, tri, placed = (torch.empty_like(got[0]),
+                             torch.empty_like(got[1]),
+                             torch.empty(2, dtype=torch.int64, device=device))
+        launch = B.kernel_launch(key, opA, key2, tri, placed, **kw)
+        ms, b2b_ms = graph_ms(launch, reps=20), cuda_ms(launch, reps=20)
+        if not (torch.equal(key2, got[0]) and torch.equal(tri, got[1])):
+            raise AssertionError(f"bin-emit {name}: the timed launch wrote "
+                                 "another list")
+        rec = dict(max_abs_err=0.0, ms=ms, back_to_back_ms=b2b_ms,
+                   plain_ms=plain_ms, library_ms=None, rows=key2.numel(),
+                   placed=[int(got[2]), int(got[3])], **emit_bound(kw))
+        log("bin-emit", f"{name}: {kw['T']} triangles, {key2.numel()} rows "
+            f"({rec['placed'][0]} dense and {rec['placed'][1]} spill "
+            f"placed): equal to its plain version at every row; "
+            f"{ms:.4f} ms by CUDA graph ({b2b_ms:.4f} ms back to back), "
+            f"plain {plain_ms:.1f} ms on the host's CPU; {share(rec)}")
+        records[f"bin_emit_{name}"] = rec
+        del got, want, key2, tri, launch
+    # each case: one call, then 21 calls at the graph's capture and warm-up
+    # and 21 back to back
+    if B.launches != 2 * (1 + 21 + 21):
+        raise AssertionError(f"{B.launches} emit launches in the phase")
+    launches["bin-emit"] = dict(bin_emit=B.launches)
+    del cases
+    torch.cuda.empty_cache()
+
+
 def phase_counts(binned, kw, depth0, scissor, chunk, records, launches):
     """The early-exit measurement: K3's visit counter on the sponza table
     (its own path, counted), then against the stream plain version."""
@@ -904,7 +1012,7 @@ def phase_config4(build_device, resolution, launches, n_instances=100):
 def phase_sponza(build_device, resolution, launches, grid_n=420):
     """Config 5 through RenderWindow until every adaptive stage engaged,
     then the steady frame time."""
-    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
+    from tyleri_tpu_torch.ops import binning, raster_cuda, setup_cuda
     from tyleri_tpu_torch.window.render_window import RenderWindow
 
     messages = []
@@ -917,10 +1025,12 @@ def phase_sponza(build_device, resolution, launches, grid_n=420):
     orbit = [0.25 * k for k in range(1, 25)]
     setup_cuda.reset_launches()
     raster_cuda.reset_launches()
+    binning.reset_launches()
     frames, warm_s, seen = converge(win, rig, 0.0, max_frames=96,
                                     orbit=orbit)
-    counted = (setup_cuda.launches, raster_cuda.variant_launches["base"])
-    if counted != (frames, frames) or raster_cuda.launches() != frames:
+    counted = (setup_cuda.launches, raster_cuda.variant_launches["base"],
+               binning.launches)
+    if counted != (frames,) * 3 or raster_cuda.launches() != frames:
         raise AssertionError(f"kernel launches {counted} for {frames} "
                              "frames of one pass each")
     if rf.plan.raster.peel2:
@@ -932,7 +1042,11 @@ def phase_sponza(build_device, resolution, launches, grid_n=420):
         f"{rf.plan.raster.valid_cap}, peel2 off; launches {counted}")
     ms, host_ms, img_a = steady(win, rig, 0.0, messages)
     launches["config5"] = dict(raster_cuda.variant_launches,
-                               fused_setup=setup_cuda.launches)
+                               fused_setup=setup_cuda.launches,
+                               bin_emit=binning.launches)
+    if binning.launches != setup_cuda.launches:
+        raise AssertionError(f"config5 launches {launches['config5']}: one "
+                             "emit a frame")
     if img_a.shape != (resolution[1], resolution[0], 4):
         raise AssertionError(f"image shape {img_a.shape}")
     covered = float((img_a[..., :3] > 0).any(axis=-1).mean())
@@ -1814,6 +1928,7 @@ KERNEL_SYMBOLS = {
     "rasterize_visibility_peel2": "visibility_kernel<(bool)1, (bool)0>",
     "rasterize_visibility_counts": "visibility_kernel<(bool)0, (bool)1>",
     "raster_exact": "raster_exact_kernel",
+    "bin_emit": "binning_emit_kernel",
     "gather_rows": "gather_rows_kernel",
     "fixed_grid": "fixed_grid_kernel",
     "fixed_cost": "fixed_cost_kernel",
@@ -2311,6 +2426,7 @@ def main() -> int:
                                    SPONZA_RES, records)
     phase("k3-counts", phase_counts, binned, kw, depth0, sp["scissor"],
           rf.plan.raster.chunk, records, launches)
+    phase("bin-emit", phase_bin_emit, device, rf, sp, records, launches)
     # the port's binning gather of this frame, for the probes' phase
     n = int(binned.num_entries)
     sponza_gather = (su.channels, binned.entry_channels[:n])
@@ -2362,6 +2478,11 @@ def main() -> int:
              source="tyleri_tpu_torch/csrc/raster_exact.cu",
              replaces="none (tyleri_tpu/ops/raster_exact.py is plain jnp)",
              launches=path_sum("raster_exact"), **records["raster_exact"]),
+        dict(name="bin_emit", route="cuda",
+             source="tyleri_tpu_torch/csrc/binning_emit.cu",
+             replaces="none (tyleri_tpu/ops/binning.py is plain XLA)",
+             launches=path_sum("bin_emit"), **records["bin_emit_sponza"],
+             statue=records["bin_emit_statue"]),
     ] + [dict(name=name, route="cuda",
               source=f"tyleri_tpu_torch/csrc/{source}", replaces=replaces,
               launches=launches["probes"][name], **records[name])

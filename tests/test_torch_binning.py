@@ -131,3 +131,86 @@ def test_bin_triangles_gathers_extra_rows_like_jax():
             np.testing.assert_array_equal(rows[:cap], extra[tri])
     assert got.entry_extra.shape == (caps["entry_cap"], 12)
     assert got.broad_extra.shape == (caps["broad_cap"], 12)
+
+
+def emit_call(monkeypatch, su, **kw):
+    """``bin_triangles`` on the CPU, and its one emit call: (key, opA,
+    keywords, outputs)."""
+    calls = []
+    real = tbinning.emit_entries
+
+    def spy(key, opA, **k):
+        out = real(key, opA, **k)
+        calls.append((key, opA, k, out))
+        return out
+
+    monkeypatch.setattr(tbinning, "emit_entries", spy)
+    tbinning.bin_triangles(su, **kw)
+    (call,) = calls
+    return call
+
+
+def segment_rows(key, opA, rows, cover, grid_w, ntiles, T):
+    """The kernel's rule for one segment (csrc/binning_emit.cu), row i from
+    row i of the key and opA: (key2, tri, rows placed)."""
+    live, scount, tw, tri = tbinning.unpack_key(key[:rows])
+    a = opA[:rows]
+    lv = live & (scount >= cover)
+    q = torch.div(cover, tw, rounding_mode="floor")
+    tile = (((a >> 8) & 0xFF) + q) * grid_w + (a & 0xFF) + (cover - q * tw)
+    tile = torch.where(lv, tile, torch.full_like(tile, ntiles))
+    return ((tile << 16) | torch.clamp(a >> 16, 0, 65535),
+            torch.clamp(tri, max=T - 1), int(lv.sum()))
+
+
+@pytest.mark.parametrize("K", [8, 16, 32])
+@pytest.mark.parametrize("caps", sorted(CAPS))
+def test_emit_segments_cover_the_plain_layout(monkeypatch, caps, K):
+    """The emit kernel's host-side segment table covers the plain emit's
+    concatenation exactly: its length is vcap plus ``spill_rows``, padded to
+    entry_cap; each segment, read by the kernel's per-row rule from its
+    cover, equals that stretch of the plain emit's key2 and triangle ids,
+    in order; the pad is the dead sentinel with triangle 0; the placed
+    counts are the segments' sums."""
+    kw = dict(CAPS[caps], grid_w=GRID_W, grid_h=GRID_H,
+              max_tiles_per_tri=K)
+    if "spill_level_caps" in kw:
+        kw["spill_level_caps"] = (512,) * len(tbinning._level_caps(1, K))
+    su = to_torch(setup_table())
+    key, opA, k, (key2, tri, dense, spill) = emit_call(monkeypatch, su, **kw)
+    segs = tbinning.emit_segments(k["vcap"], k["caps"], k["entry_cap"], K)
+    T, ntiles = su.valid.shape[0], GRID_W * GRID_H
+    emitted = k["vcap"] + tbinning.spill_rows(kw["spill_cap"], K,
+                                              kw.get("spill_level_caps", ()))
+    assert k["vcap"] == min(kw.get("valid_cap") or T, kw["entry_cap"])
+    assert sum(s[1] for s in segs) == max(emitted, kw["entry_cap"])
+    assert key2.shape == tri.shape == (max(emitted, kw["entry_cap"]),)
+    assert [s[0] for s in segs] == list(
+        np.cumsum([0] + [s[1] for s in segs[:-1]]))
+    covers = [s[2] for s in segs]
+    assert covers[:K] == list(range(K)) and covers[K:] in ([], [-1])
+    placed = [0, 0]
+    for start, rows, cover in segs:
+        got = slice(start, start + rows)
+        if cover < 0:
+            assert bool((key2[got] == ntiles << 16).all())
+            assert bool((tri[got] == 0).all())
+            continue
+        want_k2, want_tri, n = segment_rows(key, opA, rows, cover, GRID_W,
+                                            ntiles, T)
+        assert torch.equal(key2[got], want_k2), cover
+        assert torch.equal(tri[got], want_tri), cover
+        placed[cover > 0] += n
+    assert placed == [int(dense), int(spill)]
+
+
+def test_cpu_emit_launches_no_kernel(monkeypatch):
+    """CPU tensors take the plain emit: no launch, no ``bin.emit``."""
+    from tyleri_tpu_torch.utils.profiling import tracing
+
+    monkeypatch.setattr(tbinning, "launches", 0)
+    with tracing() as records:
+        tbinning.bin_triangles(to_torch(setup_table()), grid_w=GRID_W,
+                               grid_h=GRID_H, **CAPS["roomy"])
+    assert tbinning.launches == 0
+    assert not any("bin.emit" in c for c in records.counters.values())

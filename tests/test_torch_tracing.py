@@ -125,6 +125,35 @@ def test_ui_pass_spans_hold_its_read():
     assert [spans[i].name for i in children(spans, kids[1])] == ["ui.read"]
 
 
+def test_bin_spill_opens_once_a_bin_triangles_call():
+    """``bin.spill``, which ``binning.spill_host_ms`` reads, opens once
+    inside each ``bin`` span, on the emit's path (the plain emit here; the
+    kernel's launch on the card, tests/test_torch_binning_emit_cuda.py)."""
+    from tyleri_tpu_torch.ops import binning
+    from tyleri_tpu_torch.ops import setup as S
+
+    g = torch.Generator().manual_seed(3)
+    T = 400
+    clip = torch.ones((T, 3, 4))
+    clip[..., :2] = (torch.rand((T, 1, 2), generator=g) * 2.4 - 1.2
+                     + torch.rand((T, 3, 2), generator=g) * 0.4 - 0.2)
+    clip[..., 2] = 0.5
+    su = S.setup_triangles(clip, torch.rand((T, 3, 2), generator=g),
+                           torch.zeros(T, dtype=torch.int32),
+                           torch.ones(T, dtype=torch.bool),
+                           [0, 0, 128, 64, 0, 1], [0, 0, 128, 64], tile_w=8,
+                           tile_h=8, grid_w=16, grid_h=8)
+    with tracing() as records:
+        for _ in range(2):
+            binning.bin_triangles(su, grid_w=16, grid_h=8, entry_cap=1 << 14,
+                                  spill_cap=1 << 12)
+    spans = records.spans
+    bins = [i for i, s in enumerate(spans) if s.name == "bin"]
+    spills = [i for i, s in enumerate(spans) if s.name == "bin.spill"]
+    assert len(bins) == 2
+    assert [spans[i].parent for i in spills] == bins
+
+
 def counting(real):
     """A stand-in for a profiler range class that counts its entries."""
 

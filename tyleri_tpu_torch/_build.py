@@ -229,6 +229,16 @@ def _bind(lib) -> None:
         i,                        # write mask bits
         p,                        # stream
     ]
+    ll = ctypes.c_longlong
+    lib.ty_binning_emit.restype = i
+    lib.ty_binning_emit.argtypes = [
+        p, p, ll,                 # key, opA, their rows
+        p, p, i,                  # segment starts (host, nseg + 1), covers
+                                  # (host), nseg
+        i, i, ll,                 # grid_w, ntiles, T - 1
+        p, p, p,                  # key2, tri, placed counts
+        p,                        # stream
+    ]
     maps = [p] * 7                # up to 7 output maps, null past the last
     lib.ty_gather_rows.restype = i
     lib.ty_gather_rows.argtypes = [p, p, i, i, i, p, p, p]

@@ -16,7 +16,11 @@ same thing:
     the dense (first covered tile) slots;
   * spill level j (covers 2^(j-1) .. 2^j - 1) is a prefix of that order,
     sliced at the level's cap;
-  * the second sort is over the packed (tile << 16 | zmin) key.
+  * the entry emit writes one (tile << 16 | zmin) key and one triangle id
+    for every dense slot and spill cover, in one pre-sort list: on CUDA
+    tensors one launch of ``csrc/binning_emit.cu``, on CPU tensors its
+    plain version, the eager emit (``emit_entries``);
+  * the second sort is over that packed key.
 
 Both sorts are unstable, so the entry order among equal keys (and with it
 the owner ids of the visibility buffer) may differ between runs and
@@ -25,13 +29,16 @@ backends; the per-tile entry multisets do not.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
+from tyleri_tpu_torch import _build
 from tyleri_tpu_torch.ops import setup as S
 from tyleri_tpu_torch.ops.setup import TriangleSetup
-from tyleri_tpu_torch.utils.profiling import span
+from tyleri_tpu_torch.utils.profiling import count, span
 
 # per-level capacity fractions of spill_cap (the JAX package's tuning)
 _LEVEL_FRACS = (0.6, 0.2, 0.08, 0.03, 0.012)
@@ -40,6 +47,9 @@ _LEVEL_FRACS = (0.6, 0.2, 0.08, 0.03, 0.012)
 TRI_BITS = 32
 TRI_MASK = (1 << TRI_BITS) - 1
 DEAD_KEY = (1 << (TRI_BITS + 10)) - 1
+
+# emit kernel launches since the last reset (main-path accounting)
+launches = 0
 
 
 class BinnedEntries(NamedTuple):
@@ -98,6 +108,156 @@ def unpack_key(key):
             ((key >> TRI_BITS) & 0x1F) + 1, key & TRI_MASK)
 
 
+def emit_segments(vcap: int, caps, entry_cap: int, K: int
+                  ) -> tuple[tuple[int, int, int], ...]:
+    """The pre-sort entry list's layout, ((first row, rows, cover), ...) in
+    the plain emit's order: the dense slots (cover 0, the first ``vcap``
+    rows of the first sort's order), then each spill level's covers c in
+    [lo, hi], ``cap`` rows each, then the pad up to ``entry_cap`` (cover
+    -1).  Empty segments are left out."""
+    segs, row, lo = [(0, vcap, 0)], vcap, 1
+    for cap in caps:
+        for c in range(lo, min(2 * lo, K)):
+            segs.append((row, cap, c))
+            row += cap
+        lo *= 2
+        if lo >= K:
+            break
+    segs.append((row, entry_cap - row, -1))
+    return tuple(s for s in segs if s[1] > 0)
+
+
+@functools.lru_cache(maxsize=64)
+def _segment_args(vcap: int, caps: tuple, entry_cap: int, K: int):
+    """The kernel's segment table as ctypes arrays: each segment's first
+    row and the list's length, each segment's cover."""
+    segs = emit_segments(vcap, caps, entry_cap, K)
+    starts = [s[0] for s in segs] + [sum(s[1] for s in segs)]
+    return ((ctypes.c_longlong * len(starts))(*starts),
+            (ctypes.c_int * len(segs))(*(s[2] for s in segs)), len(segs),
+            starts[-1])
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def emit_entries(key, opA, *, T: int, grid_w: int, ntiles: int, K: int,
+                 vcap: int, caps, entry_cap: int):
+    """The pre-sort entry list from the first sort's ``key`` and the
+    permuted ``opA`` (int64, equal lengths): (key2, tri, placed_dense,
+    placed_spill), key2 the (tile << 16 | zmin) key and tri the triangle id
+    (clamped to T - 1) of every row of ``emit_segments``'s layout, int64,
+    and the live dense and spill rows placed (int64 scalars).  On CUDA
+    tensors one launch of ``csrc/binning_emit.cu`` (``kernel_launch``); on
+    CPU tensors its plain version, the eager emit."""
+    if key.device.type == "cuda":
+        with span("bin.spill"):
+            n = _segment_args(vcap, tuple(caps), entry_cap, K)[3]
+            key2 = torch.empty(n, dtype=torch.int64, device=key.device)
+            tri = torch.empty_like(key2)
+            placed = torch.empty(2, dtype=torch.int64, device=key.device)
+            kernel_launch(key, opA, key2, tri, placed, T=T, grid_w=grid_w,
+                          ntiles=ntiles, K=K, vcap=vcap, caps=caps,
+                          entry_cap=entry_cap)()
+            return key2, tri, placed[0], placed[1]
+    if key.device.type != "cpu":
+        raise ValueError(f"emit_entries: unsupported device {key.device}")
+    return _emit_plain(key, opA, T, grid_w, ntiles, K, vcap, caps,
+                       entry_cap)
+
+
+def kernel_launch(key, opA, key2, tri, placed, *, T: int, grid_w: int,
+                  ntiles: int, K: int, vcap: int, caps, entry_cap: int):
+    """The emit as one launch of ``csrc/binning_emit.cu``, writing
+    ``key2`` and ``tri`` (int64, the layout's length) and the two counts
+    into ``placed`` (int64 [2], zeroed by the launch).  Checks the inputs
+    and returns the launch, on the current stream (chip_smoke.py times it
+    alone)."""
+    starts, covers, nseg, n = _segment_args(vcap, tuple(caps), entry_cap, K)
+    dev = key.device
+    for name, t, rows in (("key", key, key.shape[0]), ("opA", opA,
+                          key.shape[0]), ("key2", key2, n), ("tri", tri, n),
+                          ("placed", placed, 2)):
+        if (t.dtype != torch.int64 or tuple(t.shape) != (rows,)
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError(
+                f"emit_entries: {name} must be a contiguous int64 ({rows},) "
+                f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if max([vcap, *caps]) > key.shape[0]:
+        raise ValueError(f"emit_entries: {key.shape[0]} key rows, segments "
+                         f"of up to {max([vcap, *caps])}")
+    lib = _build.load()
+    args = (key.data_ptr(), opA.data_ptr(), key.shape[0], starts, covers,
+            nseg, grid_w, ntiles, T - 1, key2.data_ptr(), tri.data_ptr(),
+            placed.data_ptr())
+
+    def launch():
+        global launches
+        launches += 1
+        count("bin.emit")
+        placed.zero_()
+        err = lib.ty_binning_emit(*args,
+                                  torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "binning_emit")
+
+    # the tensors whose pointers it passes live as long as the launch
+    launch.tensors = dict(key=key, opA=opA, key2=key2, tri=tri, placed=placed)
+    return launch
+
+
+def _emit_plain(key, opA, T, grid_w, ntiles, K, vcap, caps, entry_cap):
+    """The kernel's plain version: eager unpacks, one body a spill cover,
+    and the concatenation of the pieces in ``emit_segments``'s order."""
+    dev = key.device
+
+    def unpack(cap):
+        a = opA[:cap]
+        live, scnt, twl, tril = unpack_key(key[:cap])
+        return live, scnt, twl, tril, a >> 16, (a >> 8) & 0xFF, a & 0xFF
+
+    with span("bin.dense"):
+        # dense slots: every live narrow triangle, compacted
+        live, _, _, tril, zq, ty, tx = unpack(vcap)
+        dead_tile = torch.full_like(tx, ntiles)
+        seg_tile = [torch.where(live, ty * grid_w + tx, dead_tile)]
+        seg_zmin, seg_tri = [zq], [tril]
+        placed_dense = live.sum()
+    with span("bin.spill"):
+        placed_spill = torch.zeros((), dtype=torch.int64, device=dev)
+        lo = 1
+        for cap in caps:
+            hi = min(2 * lo, K) - 1           # cover indices [lo, hi]
+            live, scnt, twl, tril, zq, ty, tx = unpack(cap)
+            dead_tile = torch.full_like(tx, ntiles)
+            for c in range(lo, hi + 1):
+                lv = live & (scnt >= c)
+                cy = ty + torch.div(c, twl, rounding_mode="floor")
+                cx = tx + c - torch.div(c, twl, rounding_mode="floor") * twl
+                seg_tile.append(torch.where(lv, cy * grid_w + cx, dead_tile))
+                seg_zmin.append(zq)
+                seg_tri.append(tril)
+                placed_spill = placed_spill + lv.sum()
+            lo *= 2
+            if lo >= K:
+                break
+
+        all_tile = torch.cat(seg_tile)
+        all_zmin = torch.cat(seg_zmin)
+        all_tri = torch.cat(seg_tri)
+        pad = max(entry_cap - all_tile.shape[0], 0)
+        if pad:
+            all_tile = torch.cat([all_tile, all_tile.new_full((pad,), ntiles)])
+            all_zmin = torch.cat([all_zmin, all_zmin.new_zeros((pad,))])
+            all_tri = torch.cat([all_tri, all_tri.new_zeros((pad,))])
+        key2 = (all_tile << 16) | torch.clamp(all_zmin, 0, 65535)
+        # dead rows carry the all-ones triangle id; clamped, it gathers the
+        # last row, as XLA's gather does
+        all_tri = torch.clamp(all_tri, max=T - 1)
+    return key2, all_tri, placed_dense, placed_spill
+
+
 def bin_triangles(setup: TriangleSetup, extra=None, *, grid_w: int,
                   grid_h: int, entry_cap: int, max_tiles_per_tri: int = 32,
                   broad_cap: int = 256, spill_cap: int = 1 << 16,
@@ -153,36 +313,9 @@ def _bin_triangles(setup, extra, grid_w, grid_h, entry_cap,
         key, perm = torch.sort(key)
         opA = opA[perm]
 
-        def unpack(cap):
-            a = opA[:cap]
-            live, scnt, twl, tril = unpack_key(key[:cap])
-            return live, scnt, twl, tril, a >> 16, (a >> 8) & 0xFF, a & 0xFF
-
-    with span("bin.dense"):
-        # dense slots: every live narrow triangle, compacted
-        live, _, _, tril, zq, ty, tx = unpack(vcap)
-        dead_tile = torch.full_like(tx, ntiles)
-        seg_tile = [torch.where(live, ty * grid_w + tx, dead_tile)]
-        seg_zmin, seg_tri = [zq], [tril]
-        placed_dense = live.sum()
-    with span("bin.spill"):
-        placed_spill = torch.zeros((), dtype=torch.int64, device=dev)
-        lo = 1
-        for cap in caps:
-            hi = min(2 * lo, K) - 1           # cover indices [lo, hi]
-            live, scnt, twl, tril, zq, ty, tx = unpack(cap)
-            dead_tile = torch.full_like(tx, ntiles)
-            for c in range(lo, hi + 1):
-                lv = live & (scnt >= c)
-                cy = ty + torch.div(c, twl, rounding_mode="floor")
-                cx = tx + c - torch.div(c, twl, rounding_mode="floor") * twl
-                seg_tile.append(torch.where(lv, cy * grid_w + cx, dead_tile))
-                seg_zmin.append(zq)
-                seg_tri.append(tril)
-                placed_spill = placed_spill + lv.sum()
-            lo *= 2
-            if lo >= K:
-                break
+    key2, all_tri, placed_dense, placed_spill = emit_entries(
+        key, opA, T=T, grid_w=grid_w, ntiles=ntiles, K=K, vcap=vcap,
+        caps=caps, entry_cap=entry_cap)
 
     with span("bin.tiles"):
         # disjoint overflow terms: valid_cap drops, level-cap drops, then
@@ -191,23 +324,11 @@ def _bin_triangles(setup, extra, grid_w, grid_h, entry_cap,
         overflow = ((dense_live - placed_dense) + (total_spill - placed_spill)
                     + torch.clamp(live_placed - entry_cap, min=0))
 
-        all_tile = torch.cat(seg_tile)
-        all_zmin = torch.cat(seg_zmin)
-        all_tri = torch.cat(seg_tri)
-        pad = max(entry_cap - all_tile.shape[0], 0)
-        if pad:
-            all_tile = torch.cat([all_tile, all_tile.new_full((pad,), ntiles)])
-            all_zmin = torch.cat([all_zmin, all_zmin.new_zeros((pad,))])
-            all_tri = torch.cat([all_tri, all_tri.new_zeros((pad,))])
-
         # (tile, zmin) sort: dead rows carry the ntiles sentinel and sort last
-        key2 = (all_tile << 16) | torch.clamp(all_zmin, 0, 65535)
         key2, perm2 = torch.sort(key2)
         i32 = torch.int32
         entry_tile = (key2[:entry_cap] >> 16).to(i32)
-        # dead rows carry the all-ones triangle id; the gather clamps it, as
-        # XLA's does
-        entry_tri = torch.clamp(all_tri[perm2[:entry_cap]], max=T - 1)
+        entry_tri = all_tri[perm2[:entry_cap]]
         tile_start = torch.searchsorted(
             entry_tile, torch.arange(ntiles + 1, dtype=i32, device=dev),
             side="left").to(i32)
