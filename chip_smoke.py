@@ -140,6 +140,7 @@ the script fails before printing any of them.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import sys
@@ -149,6 +150,8 @@ import warnings
 import numpy as np
 import torch
 
+from tyleri_tpu_torch import _build
+from tyleri_tpu_torch.ops.raster_cuda import K3_NAMES
 from tyleri_tpu_torch.tools._common import (
     bound,
     bytes_of,
@@ -182,6 +185,17 @@ STATUE_ENTRIES = 32_605_000
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def launched() -> collections.Counter:
+    """The kernel launches since the last ``_build.reset_launches()``, by
+    kernel name (a copy; 0 for a kernel that did not launch)."""
+    return _build.launches.copy()
+
+
+def k3_launches(counted) -> int:
+    """K3's launches of every variant in ``counted`` (a Counter)."""
+    return sum(counted[k] for k in K3_NAMES.values())
 
 
 def random_table(rng, T, D):
@@ -641,7 +655,7 @@ def phase_bin_emit(device, rf, sp, records, launches):
     cases = {"sponza": (key, opA, kw)}
     cases["statue"] = statue_emit_inputs(device, {
         k: kw[k] for k in ("grid_w", "ntiles")})
-    B.reset_launches()
+    _build.reset_launches()
     for name, (key, opA, kw) in cases.items():
         got = B.emit_entries(key, opA, **kw)
         t0 = time.perf_counter()
@@ -672,9 +686,10 @@ def phase_bin_emit(device, rf, sp, records, launches):
         del got, want, key2, tri, launch
     # each case: one call, then 21 calls at the graph's capture and warm-up
     # and 21 back to back
-    if B.launches != 2 * (1 + 21 + 21):
-        raise AssertionError(f"{B.launches} emit launches in the phase")
-    launches["bin-emit"] = dict(bin_emit=B.launches)
+    launches["bin-emit"] = launched()
+    if launches["bin-emit"]["bin_emit"] != 2 * (1 + 21 + 21):
+        raise AssertionError(f"emit launches in the phase: "
+                             f"{launches['bin-emit']}")
     del cases
     torch.cuda.empty_cache()
 
@@ -684,10 +699,10 @@ def phase_counts(binned, kw, depth0, scissor, chunk, records, launches):
     (its own path, counted), then against the stream plain version."""
     from tyleri_tpu_torch.ops import raster_cuda
 
-    raster_cuda.reset_launches()
+    _build.reset_launches()
     vis, nvis = raster_cuda.rasterize_visibility(
         binned, depth0, scissor, chunk=chunk, counts=True, **kw)
-    launches["counts"] = dict(raster_cuda.variant_launches)
+    launches["counts"] = launched()
     want, want_nvis = raster_cuda.rasterize_visibility_stream_reference(
         binned, depth0, scissor, chunk=chunk, counts=True, **kw)
     if not (layers_bit_equal(vis, want) and torch.equal(nvis, want_nvis)):
@@ -823,7 +838,6 @@ def phase_small_configs(build_device, launches, res3=(800, 600)):
     """Configs 1, 2 and 3 (lit) through RenderWindow with peel2, against
     the sequential oracle."""
     import tyleri_tpu_torch as tt
-    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
     from tyleri_tpu_torch.testing.scene_oracle import (
         mismatch_fraction,
         scene_oracle_u8,
@@ -839,16 +853,15 @@ def phase_small_configs(build_device, launches, res3=(800, 600)):
         rig = make(dev)
         win = tt.RenderWindow(dev, resolution=rig.resolution,
                               present_mode="immediate")
-        setup_cuda.reset_launches()
-        raster_cuda.reset_launches()
+        _build.reset_launches()
         img = render_frames(win, rig, [t])
-        launches[name] = dict(raster_cuda.variant_launches,
-                              fused_setup=setup_cuda.launches)
+        launches[name] = launched()
         plan = win.rendering_function.plan
         if not plan.raster.peel2 or plan.lit != (name == "config3"):
             raise AssertionError(f"{name}: peel2 {plan.raster.peel2}, lit "
                                  f"{plan.lit}")
-        if launches[name]["peel2"] != 1 or launches[name]["base"]:
+        if (launches[name]["rasterize_visibility_peel2"] != 1
+                or launches[name]["rasterize_visibility"]):
             raise AssertionError(f"{name}: launches {launches[name]}")
         scene = tt.RenderScene()
         rig.fill(scene, t)
@@ -938,7 +951,6 @@ def phase_config4(build_device, resolution, launches, n_instances=100):
     convergence, steady frame times in turns (auto, fast, fast, auto), and
     the deviation from the sequential oracle of each."""
     import tyleri_tpu_torch as tt
-    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
     from tyleri_tpu_torch.testing.scene_oracle import (
         mismatch_fraction,
         scene_oracle_u8,
@@ -952,8 +964,7 @@ def phase_config4(build_device, resolution, launches, n_instances=100):
     for policy in ("auto", "fast"):
         win = tt.RenderWindow(dev, resolution=resolution,
                               present_mode="immediate", blend_parity=policy)
-        setup_cuda.reset_launches()
-        raster_cuda.reset_launches()
+        _build.reset_launches()
         n, warm_s, _ = converge(win, rig, t)
         frames[policy] = n
         wins[policy] = win
@@ -966,21 +977,18 @@ def phase_config4(build_device, resolution, launches, n_instances=100):
     images = {}
     for policy in ("auto", "fast", "fast", "auto"):
         win = wins[policy]
-        setup_cuda.reset_launches()
-        raster_cuda.reset_launches()
+        _build.reset_launches()
         ms, host_ms, images[policy] = steady(win, rig, t, msgs)
-        counted = dict(raster_cuda.variant_launches,
-                       fused_setup=setup_cuda.launches)
+        counted = launched()
         n = 3 + 30 + 1
-        variant = "peel2" if policy == "auto" else "base"
+        variant = K3_NAMES["peel2" if policy == "auto" else "base"]
         if (win.rendering_function.plan.raster.peel2 != (policy == "auto")
-                or counted[variant] != n or raster_cuda.launches() != n
+                or counted[variant] != n or k3_launches(counted) != n
                 or counted["fused_setup"] != n):
             raise AssertionError(f"config4 {policy}: launches {counted} for "
                                  f"{n} frames")
         key = f"config4_{policy}"
-        launches[key] = {k: launches.get(key, {}).get(k, 0) + v
-                         for k, v in counted.items()}
+        launches[key] = launches.get(key, collections.Counter()) + counted
         times[policy].append((ms, host_ms))
     for policy in ("auto", "fast"):
         (a, ha), (b, hb) = times[policy]
@@ -1012,7 +1020,6 @@ def phase_config4(build_device, resolution, launches, n_instances=100):
 def phase_sponza(build_device, resolution, launches, grid_n=420):
     """Config 5 through RenderWindow until every adaptive stage engaged,
     then the steady frame time."""
-    from tyleri_tpu_torch.ops import binning, raster_cuda, setup_cuda
     from tyleri_tpu_torch.window.render_window import RenderWindow
 
     messages = []
@@ -1023,14 +1030,12 @@ def phase_sponza(build_device, resolution, launches, grid_n=420):
     # orbit frames cross the near plane (hybrid clip); then a still camera
     # with no crossers for the clip skip and the fit stages
     orbit = [0.25 * k for k in range(1, 25)]
-    setup_cuda.reset_launches()
-    raster_cuda.reset_launches()
-    binning.reset_launches()
+    _build.reset_launches()
     frames, warm_s, seen = converge(win, rig, 0.0, max_frames=96,
                                     orbit=orbit)
-    counted = (setup_cuda.launches, raster_cuda.variant_launches["base"],
-               binning.launches)
-    if counted != (frames,) * 3 or raster_cuda.launches() != frames:
+    c = launched()
+    counted = (c["fused_setup"], c["rasterize_visibility"], c["bin_emit"])
+    if counted != (frames,) * 3 or k3_launches(c) != frames:
         raise AssertionError(f"kernel launches {counted} for {frames} "
                              "frames of one pass each")
     if rf.plan.raster.peel2:
@@ -1041,10 +1046,8 @@ def phase_sponza(build_device, resolution, launches, grid_n=420):
         f"entry_cap {rf.plan.raster.entry_cap}, valid_cap "
         f"{rf.plan.raster.valid_cap}, peel2 off; launches {counted}")
     ms, host_ms, img_a = steady(win, rig, 0.0, messages)
-    launches["config5"] = dict(raster_cuda.variant_launches,
-                               fused_setup=setup_cuda.launches,
-                               bin_emit=binning.launches)
-    if binning.launches != setup_cuda.launches:
+    launches["config5"] = c = launched()
+    if c["bin_emit"] != c["fused_setup"]:
         raise AssertionError(f"config5 launches {launches['config5']}: one "
                              "emit a frame")
     if img_a.shape != (resolution[1], resolution[0], 4):
@@ -1117,7 +1120,7 @@ def phase_ui(sponza, launches, resolution, records):
     with the UI's depth as its incoming depth equals its plain version; the
     steady frame time with and without the overlay, in turns."""
     import tyleri_tpu_torch as tt
-    from tyleri_tpu_torch.ops import raster_cuda, raster_exact, setup_cuda
+    from tyleri_tpu_torch.ops import raster_cuda, raster_exact
     from tyleri_tpu_torch.rendering import forward, passes
     from tyleri_tpu_torch.testing.scene_oracle import ui_oracle
 
@@ -1146,15 +1149,12 @@ def phase_ui(sponza, launches, resolution, records):
 
     loop_s = {}
     for scale in (1.0, 2.0):
-        setup_cuda.reset_launches()
-        raster_cuda.reset_launches()
-        raster_exact.reset_launches()
+        _build.reset_launches()
         both, _ = record(True, True, scale)
-        counted = dict(raster_cuda.variant_launches,
-                       fused_setup=setup_cuda.launches,
-                       raster_exact=raster_exact.launches)
-        if counted != dict(base=1, peel2=0, counts=0, fused_setup=1,
-                           raster_exact=1):
+        counted = launched()
+        if counted != collections.Counter(
+                fused_setup=1, rasterize_visibility=1, bin_emit=1,
+                raster_exact=1):
             raise AssertionError(f"UI frame launches {counted}")
         mesh, _ = record(True, False, scale)
         with capture(forward, "ui_pass") as calls, \
@@ -1198,12 +1198,12 @@ def phase_ui(sponza, launches, resolution, records):
             f"{BUDGET:.2%}; {oracle_s:.1f} s); launches {counted}")
 
     # the kernel alone on the scale-1 overlay: each call one launch
-    raster_exact.reset_launches()
+    _build.reset_launches()
     k_ms = graph_ms(launch, reps=20)
     b2b_ms = cuda_ms(launch, reps=20)
-    if raster_exact.launches != 2 * 21:
-        raise AssertionError(f"{raster_exact.launches} exact-raster launches "
-                             f"in 42 calls")
+    if _build.launches["raster_exact"] != 2 * 21:
+        raise AssertionError(f"{_build.launches['raster_exact']} exact-raster "
+                             f"launches in 42 calls")
     records["raster_exact"] = dict(
         max_abs_err=0.0, ms=k_ms, back_to_back_ms=b2b_ms,
         plain_ms=1e3 * loop_s[1.0], library_ms=None,
@@ -1258,21 +1258,17 @@ def phase_ui(sponza, launches, resolution, records):
     try:
         for which in ("overlay", "none", "none", "overlay"):
             frames = WithOverlay(rig, overlay if which == "overlay" else [])
-            setup_cuda.reset_launches()
-            raster_cuda.reset_launches()
-            raster_exact.reset_launches()
+            _build.reset_launches()
             ms, host_ms, _ = steady(win, frames, 0.0, messages)
             n = 3 + 30 + 1
-            counted = dict(raster_cuda.variant_launches,
-                           fused_setup=setup_cuda.launches,
-                           raster_exact=raster_exact.launches)
-            if counted != dict(base=n, peel2=0, counts=0, fused_setup=n,
-                               raster_exact=n if which == "overlay" else 0):
+            counted = launched()
+            if counted != collections.Counter(
+                    fused_setup=n, rasterize_visibility=n, bin_emit=n,
+                    raster_exact=n if which == "overlay" else 0):
                 raise AssertionError(f"ui {which}: launches {counted} for "
                                      f"{n} frames")
             key = f"ui_{which}"
-            launches[key] = {k: launches.get(key, {}).get(k, 0) + v
-                             for k, v in counted.items()}
+            launches[key] = launches.get(key, collections.Counter()) + counted
             times[which].append((ms, host_ms))
     finally:
         forward.ui_pass = plain_ui_pass
@@ -1294,7 +1290,7 @@ def phase_exact(build_device, launches, resolution, config4, n_instances=100,
     copies of the frame's inputs.  ``config4`` = (deviations of peel2 and
     the single layer, the 1080p sequential oracle image) from phase 8."""
     import tyleri_tpu_torch as tt
-    from tyleri_tpu_torch.ops import raster_cuda, raster_exact, setup_cuda
+    from tyleri_tpu_torch.ops import raster_exact
     from tyleri_tpu_torch.rendering import passes
     from tyleri_tpu_torch.testing.scene_oracle import (
         mismatch_fraction,
@@ -1307,13 +1303,11 @@ def phase_exact(build_device, launches, resolution, config4, n_instances=100,
         rig = make(dev)
         win = tt.RenderWindow(dev, resolution=rig.resolution,
                               present_mode="immediate", blend_parity="exact")
-        setup_cuda.reset_launches()
-        raster_cuda.reset_launches()
-        raster_exact.reset_launches()
+        _build.reset_launches()
         with capture(passes, "rasterize_exact") as calls:
             img = render_frames(win, rig, [t])
-        counted = (setup_cuda.launches, raster_cuda.launches(),
-                   raster_exact.launches)
+        c = launched()
+        counted = (c["fused_setup"], k3_launches(c), c["raster_exact"])
         if counted != (0, 0, 1):
             raise AssertionError(f"exact {name} launched {counted} (K1+K2, "
                                  f"K3, exact)")
@@ -1340,17 +1334,12 @@ def phase_exact(build_device, launches, resolution, config4, n_instances=100,
     rig = config4_rig(dev, resolution, n_instances)
     win = tt.RenderWindow(dev, resolution=resolution,
                           present_mode="immediate", blend_parity="exact")
-    setup_cuda.reset_launches()
-    raster_cuda.reset_launches()
-    raster_exact.reset_launches()
+    _build.reset_launches()
     t0 = time.perf_counter()
     img = render_frames(win, rig, [0.5])
     seconds = time.perf_counter() - t0
-    launches["exact"] = dict(raster_cuda.variant_launches,
-                             fused_setup=setup_cuda.launches,
-                             raster_exact=raster_exact.launches)
-    if (setup_cuda.launches, raster_cuda.launches(),
-            raster_exact.launches) != (0, 0, 1):
+    launches["exact"] = c = launched()
+    if (c["fused_setup"], k3_launches(c), c["raster_exact"]) != (0, 0, 1):
         raise AssertionError(f"exact config 4 launched {launches['exact']}")
     bad = mismatch_fraction(img, want, 1)
     if bad > BUDGET:
@@ -1385,7 +1374,7 @@ def phase_depth_states(build_device, launches, resolution=(800, 600),
     import dataclasses
 
     import tyleri_tpu_torch as tt
-    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
+    from tyleri_tpu_torch.ops import raster_cuda
     from tyleri_tpu_torch.ops.shade import shade_visibility
     from tyleri_tpu_torch.ops.visibility import VisibilityBuffer
     from tyleri_tpu_torch.resource.textures import texture_tensors
@@ -1405,13 +1394,10 @@ def phase_depth_states(build_device, launches, resolution=(800, 600),
                   for k, v in change.items()}
         rf.mesh_state = dataclasses.replace(rf.mesh_state, depth=(
             dataclasses.replace(rf.mesh_state.depth, **change)))
-        setup_cuda.reset_launches()
-        raster_cuda.reset_launches()
+        _build.reset_launches()
         img = render_frames(win, rig, [0.9] * frames)
-        counted = dict(raster_cuda.variant_launches,
-                       fused_setup=setup_cuda.launches)
-        launches[f"depth_{name}"] = counted
-        if (raster_cuda.launches(), setup_cuda.launches) != (0, frames):
+        launches[f"depth_{name}"] = counted = launched()
+        if (k3_launches(counted), counted["fused_setup"]) != (0, frames):
             raise AssertionError(f"{name}: launches {counted} for {frames} "
                                  f"frames")
         if rf.plan.raster.peel2 or not any(m.message_id == "k3-envelope"
@@ -1617,7 +1603,6 @@ def mesh_window_run(dev, rig, mesh, resolution, t, blend_parity="auto"):
     kernels' counts from 0, then one more frame recorded and gathered.
     Returns (ms, host_ms, image, counts, frame maps, plan, frame mesh
     shape)."""
-    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
     from tyleri_tpu_torch.window.render_window import RenderWindow
 
     win = RenderWindow(dev, resolution=resolution, present_mode="immediate",
@@ -1626,8 +1611,7 @@ def mesh_window_run(dev, rig, mesh, resolution, t, blend_parity="auto"):
     rf = win.rendering_function
     plan = rf.plan
     pool = dev.present_queues
-    setup_cuda.reset_launches()
-    raster_cuda.reset_launches()
+    _build.reset_launches()
     start = pool.event(enable_timing=True)
     h0 = time.perf_counter()
     for _ in range(MESH_STEADY):
@@ -1639,8 +1623,7 @@ def mesh_window_run(dev, rig, mesh, resolution, t, blend_parity="auto"):
     end.synchronize()
     ms = start.elapsed_time(end) / MESH_STEADY
     frame = record_once(dev, rf, rig, t, resolution, mesh)
-    counts = dict(raster_cuda.variant_launches,
-                  fused_setup=setup_cuda.launches)
+    counts = launched()
     if rf.plan != plan:
         raise AssertionError("the plan changed after convergence")
     return (ms, host_ms, image, counts, frame, plan,
@@ -1745,7 +1728,6 @@ def phase_mesh(build_device, launches, resolution, res_a=(800, 600)):
     import torch.multiprocessing as mp
 
     import tyleri_tpu_torch as tt
-    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
 
     # every process group of the phase meets at a file store here, not at
     # a TCP port that another process could take first
@@ -1763,15 +1745,12 @@ def phase_mesh(build_device, launches, resolution, res_a=(800, 600)):
                 win = tt.RenderWindow(dev, resolution=res_a,
                                       present_mode="immediate",
                                       device_mesh=m)
-                setup_cuda.reset_launches()
-                raster_cuda.reset_launches()
+                _build.reset_launches()
                 images[name] = render_frames(win, rig, [0.9] * 3)
-                counted = dict(raster_cuda.variant_launches,
-                               fused_setup=setup_cuda.launches)
+                counted = launched()
                 if name == "mesh":
                     launches["mesh_1x1"] = counted
-                if (counted["fused_setup"] != 3
-                        or raster_cuda.launches() != 3):
+                if counted["fused_setup"] != 3 or k3_launches(counted) != 3:
                     raise AssertionError(f"1x1 {name}: launches {counted} "
                                          "in 3 frames")
             if not np.array_equal(images["mesh"], images["single"]):
@@ -1820,13 +1799,17 @@ def phase_mesh(build_device, launches, resolution, res_a=(800, 600)):
         for r in range(MESH_WORLD):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
+            for key in rigs:
+                ranks[-1][key]["counts"] = collections.Counter(
+                    ranks[-1][key]["counts"])
         frames = {}
         for key in rigs:
             with open(os.path.join(tmp, f"{key}.pkl"), "rb") as f:
                 frames[key] = pickle.load(f)
     for key, budget, variant, shape in (
-            ("config5", HYBRID_BUDGET, "base", (2, 2)),
-            ("config4", PEEL2_MESH_BUDGET, "peel2", (1, MESH_WORLD))):
+            ("config5", HYBRID_BUDGET, "rasterize_visibility", (2, 2)),
+            ("config4", PEEL2_MESH_BUDGET, "rasterize_visibility_peel2",
+             (1, MESH_WORLD))):
         # the rank whose kernels are held to their plain versions on its
         # band: the last draws row, in the band below the first that the
         # single-card frame covers most
@@ -1841,7 +1824,7 @@ def phase_mesh(build_device, launches, resolution, res_a=(800, 600)):
         n = got[0]["frames"]
         for g in got:
             if (g["counts"]["fused_setup"] != n or g["counts"][variant] != n
-                    or sum(g["counts"].values()) != 2 * n):
+                    or k3_launches(g["counts"]) != n):
                 raise AssertionError(f"{key}: rank launches {g['counts']} "
                                      f"in {n} frames")
         peel2 = key == "config4"
@@ -1850,8 +1833,8 @@ def phase_mesh(build_device, launches, resolution, res_a=(800, 600)):
             raise AssertionError(
                 f"{key}: peel2, remap messages, mesh "
                 f"{[(g['peel2'], g['remaps'], g['shape']) for g in got]}")
-        launches[f"mesh_2x2_{key}"] = {
-            k: sum(g["counts"][k] for g in got) for k in got[0]["counts"]}
+        launches[f"mesh_2x2_{key}"] = sum(
+            (g["counts"] for g in got), collections.Counter())
         frame, plan, image = frames[key]
         make, t = rigs[key]
         dev = build_device()
@@ -2025,15 +2008,15 @@ def phase_probes(device, card, records, launches, sponza_gather, reps=20,
     vis_tables = exp_visibility.Tables(device, *vis_size)  # sponza, binned
     extra = {exp_visibility: dict(tables=vis_tables),
              exp_mxu: dict(grid=mxu_grid)}
-    for tool in tools:
-        tool.reset_launches()
+    _build.reset_launches()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         timed = {(rec["tool"], rec["variant"]): rec for tool in tools
                  for rec in tool.run_variants(device, reps, card,
                                               **extra.get(tool, {}))}
-    launches["probes"] = {k: v for tool in tools
-                          for k, v in tool.launches.items()}
+    probe_names = {name for name, *_ in PROBES}
+    launches["probes"] = collections.Counter(
+        {k: v for k, v in launched().items() if k in probe_names})
     for line in out.getvalue().splitlines():
         log("probes", line.replace('"', "'"))
     err, plain_ms = {}, {}
@@ -2250,16 +2233,14 @@ def phase_host_io(build_device, launches, card, resources, build_s, compiled,
     import zipfile
 
     import tyleri_tpu_torch as tt
-    from tyleri_tpu_torch import _build, native
-    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
+    from tyleri_tpu_torch import native
     from tyleri_tpu_torch.testing import seeded_frame
     from tyleri_tpu_torch.utils import image
     from tyleri_tpu_torch.utils.profiling import annotate, trace
 
     if not native.available():
         raise AssertionError(f"native host runtime: {native.build_error()}")
-    setup_cuda.reset_launches()
-    raster_cuda.reset_launches()
+    _build.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         # (a) every presented frame written by write_png's native encoder
         encode = native.png_encode
@@ -2374,11 +2355,9 @@ def phase_host_io(build_device, launches, card, resources, build_s, compiled,
                                  f"events {counts} of {len(kernels)}")
         log("host-io", f"trace: {frames} frame ranges, {len(kernels)} kernel "
             f"events, of them {counts}")
-    launches["host-io"] = dict(raster_cuda.variant_launches,
-                               fused_setup=setup_cuda.launches)
+    launches["host-io"] = c = launched()
     want = 2 * len(HOST_IO_TIMES)
-    if (launches["host-io"]["fused_setup"], launches["host-io"]["peel2"]) \
-            != (want, want):
+    if (c["fused_setup"], c["rasterize_visibility_peel2"]) != (want, want):
         raise AssertionError(f"host-io launches {launches['host-io']}")
 
 
@@ -2386,7 +2365,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from tyleri_tpu_torch import _build
     from tyleri_tpu_torch.device.builders import (
         RenderDeviceBuilder,
         ValidationLevel,
@@ -2455,8 +2433,8 @@ def main() -> int:
           build_s, compiled, image_1080)
     del image_1080
 
-    def path_sum(key):
-        return sum(c.get(key, 0) for c in launches.values())
+    def path_sum(name):
+        return sum(c[name] for c in launches.values())
 
     kernels = [
         dict(name="fused_setup", route="cuda",
@@ -2465,14 +2443,15 @@ def main() -> int:
              launches=path_sum("fused_setup"), **records["fused_setup"]),
         dict(name="rasterize_visibility", route="cuda",
              source="tyleri_tpu_torch/csrc/visibility.cu", replaces=K3,
-             launches=path_sum("base"), **records["rasterize_visibility"]),
+             launches=path_sum("rasterize_visibility"),
+             **records["rasterize_visibility"]),
         dict(name="rasterize_visibility_peel2", route="cuda",
              source="tyleri_tpu_torch/csrc/visibility.cu", replaces=K3,
-             launches=path_sum("peel2"),
+             launches=path_sum("rasterize_visibility_peel2"),
              **records["rasterize_visibility_peel2"]),
         dict(name="rasterize_visibility_counts", route="cuda",
              source="tyleri_tpu_torch/csrc/visibility.cu", replaces=K3,
-             launches=path_sum("counts"),
+             launches=path_sum("rasterize_visibility_counts"),
              **records["rasterize_visibility_counts"]),
         dict(name="raster_exact", route="cuda",
              source="tyleri_tpu_torch/csrc/raster_exact.cu",
@@ -2485,7 +2464,7 @@ def main() -> int:
              statue=records["bin_emit_statue"]),
     ] + [dict(name=name, route="cuda",
               source=f"tyleri_tpu_torch/csrc/{source}", replaces=replaces,
-              launches=launches["probes"][name], **records[name])
+              launches=path_sum(name), **records[name])
          for name, replaces, source in probe_kernels]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel no path launched: {launches}")

@@ -15,6 +15,7 @@ import torch
 
 from tyleri_tpu.ops import binning as jbinning
 from tyleri_tpu.ops import setup as jsetup
+from tyleri_tpu_torch import _build
 from tyleri_tpu_torch.ops import binning as tbinning
 from tyleri_tpu_torch.ops import setup as tsetup
 
@@ -205,12 +206,14 @@ def test_emit_segments_cover_the_plain_layout(monkeypatch, caps, K):
 
 
 def test_cpu_emit_launches_no_kernel(monkeypatch):
-    """CPU tensors take the plain emit: no launch, no ``bin.emit``."""
+    """CPU tensors take the plain emit: no launch, no count."""
+    import collections
+
     from tyleri_tpu_torch.utils.profiling import tracing
 
-    monkeypatch.setattr(tbinning, "launches", 0)
+    monkeypatch.setattr(_build, "launches", collections.Counter())
     with tracing() as records:
         tbinning.bin_triangles(to_torch(setup_table()), grid_w=GRID_W,
                                grid_h=GRID_H, **CAPS["roomy"])
-    assert tbinning.launches == 0
-    assert not any("bin.emit" in c for c in records.counters.values())
+    assert _build.launches["bin_emit"] == 0
+    assert not records.counters

@@ -10,8 +10,8 @@ spill-level override and an entry_cap below the emitted rows), at K = 8,
 and on random keys and opA words through the launch alone.  Then
 ``bin_triangles`` on CUDA against CPU: per-tile entry multisets equal, and
 tile_start, overflow, num_entries, the demands and the broad list exactly
-equal.  Also: the emit makes no synchronizing call, and counts one
-``bin.emit`` a launch.
+equal.  Also: the emit makes no synchronizing call, and counts one launch
+a call in ``_build.launches``.
 
 This file imports no JAX (the card's machine has none) and skips where no
 CUDA device exists.  On the card:
@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from tyleri_tpu_torch import _build
 from tyleri_tpu_torch.ops import binning as B
 from tyleri_tpu_torch.ops import setup as S
 from tyleri_tpu_torch.utils.profiling import tracing
@@ -211,14 +212,14 @@ def test_launch_equals_its_twin_on_random_words(cuda_device, seed):
 
 def test_emit_makes_no_synchronizing_call(cuda_device, monkeypatch):
     """Under the sync debug mode's "error", around the emit alone; one
-    ``bin.emit`` count and one launch a call, inside the ``bin.spill``
-    span."""
+    launch a call, counted in ``_build.launches`` and in no tracing
+    counter, inside the ``bin.spill`` span."""
     su = setup_table()
     kw = dict(grid_w=GRID_W, grid_h=GRID_H, **caps("roomy", 32))
     _, (call,) = emits(monkeypatch, su, cuda_device, **kw)
     key, opA, k, _ = call
     torch.cuda.synchronize()
-    before = B.launches
+    before = _build.launches["bin_emit"]
     with tracing() as records:
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -226,6 +227,6 @@ def test_emit_makes_no_synchronizing_call(cuda_device, monkeypatch):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert B.launches == before + 1
-    assert records.counters == {None: {"bin.emit": 1}}
+    assert _build.launches["bin_emit"] == before + 1
+    assert not records.counters
     assert [s.name for s in records.spans] == ["bin.spill"]

@@ -19,7 +19,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAME = textwrap.dedent("""
     import sys
     import tyleri_tpu_torch as tt
-    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
+    from tyleri_tpu_torch import _build
 
     dev = tt.RenderDeviceBuilder().device("cpu").build()
     rig = tt.scenes.config1_triangle(dev, (64, 64))
@@ -56,7 +56,7 @@ FRAME = textwrap.dedent("""
     rig.fill(win.get_render_scene(), 0.9)
     win.render()
     assert win.rendering_function.plan.raster.exact and win.flush()[..., :3].any()
-    assert (setup_cuda.launches, raster_cuda.launches()) == (0, 0)
+    assert not _build.launches
     # every probe tool
     import importlib, pkgutil
     import tyleri_tpu_torch.tools as tools
@@ -151,10 +151,9 @@ def test_cpu_tensors_never_launch_kernels():
     """The wrappers route CPU tensors to the plain versions; the launch
     counters (which count kernel launches only) stay at zero."""
     import tyleri_tpu_torch as tt
-    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
+    from tyleri_tpu_torch import _build
 
-    setup_cuda.reset_launches()
-    raster_cuda.reset_launches()
+    _build.reset_launches()
     dev = tt.RenderDeviceBuilder().device("cpu").build()
     rig = tt.scenes.config2_cube(dev, (48, 32))
     win = tt.RenderWindow(dev, resolution=rig.resolution,
@@ -163,7 +162,7 @@ def test_cpu_tensors_never_launch_kernels():
         rig.fill(win.get_render_scene(), 0.4 * f)
         win.render()
     win.flush()
-    assert (setup_cuda.launches, raster_cuda.launches()) == (0, 0)
+    assert not _build.launches
 
 
 @pytest.mark.parametrize("what", ["mesh", "greater_on_visibility"])

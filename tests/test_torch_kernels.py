@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tyleri_tpu_torch import _build
 from tyleri_tpu_torch.pipeline.state import CompareOp, DepthFormat, DepthState
 from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
 from tyleri_tpu_torch.ops import setup as S
@@ -69,13 +70,13 @@ def test_fused_setup_bit_equal(cuda_device, tiles):
     args = [torch.from_numpy(a).to(cuda_device)
             for a in rand_scene(rng, 50_000, 7)]
     for cull in (None, CullMode.BACK):
-        before = setup_cuda.launches
+        before = _build.launches["fused_setup"]
         su_k, n_k, x_k = setup_cuda.fused_setup(
             *args, True, viewport, scissor, cull_mode=cull, **dims)
         su_r, n_r, x_r = setup_cuda.fused_setup_reference(
             *args, True, viewport, scissor, cull_mode=cull, **dims)
         torch.cuda.synchronize()
-        assert setup_cuda.launches == before + 1
+        assert _build.launches["fused_setup"] == before + 1
         assert torch.equal(su_k.channels.view(torch.int32),
                            su_r.channels.view(torch.int32))
         for a, b in ((su_k.valid, su_r.valid), (su_k.tile_lo, su_r.tile_lo),
@@ -210,7 +211,7 @@ def test_visibility_equal_to_plain(cuda_device, case):
                 np.float32)).to(cuda_device)
     ds = DepthState(test_enable=True, write_enable=True, compare_op=op,
                     format=fmt)
-    before = raster_cuda.launches()
+    before = _build.launches["rasterize_visibility"]
     got = raster_cuda.rasterize_visibility(b, depth0, scissor, chunk=chunk,
                                            depth_state=ds, **dims)
     want = rasterize_visibility_stream_reference(
@@ -218,7 +219,7 @@ def test_visibility_equal_to_plain(cuda_device, case):
     exact = rasterize_visibility_reference(b, depth0, scissor,
                                            depth_state=ds, **dims)
     torch.cuda.synchronize()
-    assert raster_cuda.launches() == before + 1
+    assert _build.launches["rasterize_visibility"] == before + 1
     assert_layers_equal(got, want)
     assert (got.owner >= 0).float().mean() > 0.5
     # the no-exit resolve agrees on this table (no near-degenerate plane
@@ -282,12 +283,12 @@ def test_visibility_instances_by_tile_and_chunk(cuda_device, variant, tile,
     depth0 = torch.ones((H, W), device=cuda_device)
     kw = dict(depth_state=ds, chunk=chunk, peel2=variant == "peel2",
               counts=variant == "counts", **dims)
-    before = raster_cuda.variant_launches[variant]
+    before = _build.launches[raster_cuda.K3_NAMES[variant]]
     got = raster_cuda.rasterize_visibility(b, depth0, (0, 0, W, H), **kw)
     want = rasterize_visibility_stream_reference(b, depth0, (0, 0, W, H),
                                                  **kw)
     torch.cuda.synchronize()
-    assert raster_cuda.variant_launches[variant] == before + 1
+    assert _build.launches[raster_cuda.K3_NAMES[variant]] == before + 1
     if variant == "base":
         assert_layers_equal(got, want)
         return
@@ -310,13 +311,13 @@ def test_visibility_rejects_a_misaligned_entry_table(cuda_device):
     shifted.copy_(ent)
     ds = DepthState(test_enable=True, write_enable=True,
                     compare_op=CompareOp.LESS_OR_EQUAL)
-    before = raster_cuda.launches()
+    before = _build.launches.total()
     with pytest.raises(ValueError, match="aligned"):
         raster_cuda.rasterize_visibility(
             b._replace(entry_channels=shifted),
             torch.ones((dims["fb_h"], dims["fb_w"]), device=cuda_device),
             (0, 0, dims["fb_w"], dims["fb_h"]), depth_state=ds, **dims)
-    assert raster_cuda.launches() == before
+    assert _build.launches.total() == before
 
 
 @pytest.mark.parametrize("case", ["le_d16", "less_d16", "le_d32",
@@ -333,13 +334,13 @@ def test_visibility_peel2_equal_to_stream_plain(cuda_device, case):
     ds = DepthState(test_enable=True, write_enable=True, compare_op=op,
                     format=fmt)
     depth0 = torch.ones((H, W), device=cuda_device)
-    before = raster_cuda.variant_launches["peel2"]
+    before = _build.launches["rasterize_visibility_peel2"]
     got = raster_cuda.rasterize_visibility(b, depth0, (0, 0, W, H), chunk=16,
                                            depth_state=ds, peel2=True, **dims)
     want = rasterize_visibility_stream_reference(
         b, depth0, (0, 0, W, H), depth_state=ds, peel2=True, **dims)
     torch.cuda.synchronize()
-    assert raster_cuda.variant_launches["peel2"] == before + 1
+    assert _build.launches["rasterize_visibility_peel2"] == before + 1
     for g, w in zip(got, want):
         assert_layers_equal(g, w)
     # both layers are populated, and some layer-2 slots are record gates
@@ -355,7 +356,7 @@ def test_visibility_counts_equal_to_stream_plain(cuda_device, chunk):
     ds = DepthState(test_enable=True, write_enable=True,
                     compare_op=CompareOp.LESS_OR_EQUAL)
     depth0 = torch.ones((H, W), device=cuda_device)
-    before = raster_cuda.variant_launches["counts"]
+    before = _build.launches["rasterize_visibility_counts"]
     vis, nvis = raster_cuda.rasterize_visibility(
         b, depth0, (0, 0, W, H), chunk=chunk, depth_state=ds, counts=True,
         **dims)
@@ -363,7 +364,7 @@ def test_visibility_counts_equal_to_stream_plain(cuda_device, chunk):
         b, depth0, (0, 0, W, H), depth_state=ds, counts=True, chunk=chunk,
         **dims)
     torch.cuda.synchronize()
-    assert raster_cuda.variant_launches["counts"] == before + 1
+    assert _build.launches["rasterize_visibility_counts"] == before + 1
     assert_layers_equal(vis, want)
     assert torch.equal(nvis, want_nvis)
     # the early exit skipped part of the table, and not all of it
@@ -404,12 +405,12 @@ def test_visibility_on_a_ui_depth_buffer(cuda_device, variant, tile, chunk):
     ds = DepthState(test_enable=True, write_enable=True,
                     compare_op=CompareOp.LESS_OR_EQUAL)
     kw = dict(depth_state=ds, chunk=chunk, peel2=variant == "peel2", **dims)
-    before = raster_cuda.variant_launches[variant]
+    before = _build.launches[raster_cuda.K3_NAMES[variant]]
     got = raster_cuda.rasterize_visibility(b, depth0, (0, 0, W, H), **kw)
     want = rasterize_visibility_stream_reference(b, depth0, (0, 0, W, H),
                                                  **kw)
     torch.cuda.synchronize()
-    assert raster_cuda.variant_launches[variant] == before + 1
+    assert _build.launches[raster_cuda.K3_NAMES[variant]] == before + 1
     layers = zip(got, want) if variant == "peel2" else [(got, want)]
     for g, w in layers:
         assert_layers_equal(g, w)
@@ -455,11 +456,11 @@ def test_gather_rows_bit_equal(cuda_device, C, E, sort):
 
     ids, table = exp_binning.tool_inputs(cuda_device, T=50_000, C=C, E=E,
                                          sort=sort, seed=3)
-    exp_binning.reset_launches()
+    _build.reset_launches()
     rows, sums = exp_binning.gather_rows(ids, table)
     want_rows, want_sums = exp_binning.gather_rows_reference(ids, table)
     torch.cuda.synchronize()
-    assert exp_binning.launches["gather_rows"] == 1
+    assert _build.launches["gather_rows"] == 1
     assert torch.equal(rows, want_rows)
     assert torch.equal(sums.view(torch.int32), want_sums.view(torch.int32))
 
@@ -481,11 +482,11 @@ def test_fixed_grid_bit_equal(cuda_device, case):
     d = depth_with_hot_blocks(kw["rows"] + kw.get("nouts", 7))
     d[1079, 300] = 2.5
     depth = torch.from_numpy(d).to(cuda_device)
-    exp_fixed_grid.reset_launches()
+    _build.reset_launches()
     got = exp_fixed_grid.fixed_grid(depth, **kw)
     want = exp_fixed_grid.fixed_grid_reference(depth, **kw)
     torch.cuda.synchronize()
-    assert exp_fixed_grid.launches["fixed_grid"] == 1
+    assert _build.launches["fixed_grid"] == 1
     for g, w in zip(got, want, strict=True):
         assert g.dtype == w.dtype and torch.equal(g, w)
     if kw.get("zmax_reduce", True) and kw["rows"] in (16, 128):
@@ -500,12 +501,12 @@ def test_fixed_grid_rejects_what_the_kernel_does_not_take(cuda_device):
     shifted = torch.empty(depth.numel() + 1, device=cuda_device)[1:].view(
         depth.shape)
     shifted.copy_(depth)
-    exp_fixed_grid.reset_launches()
+    _build.reset_launches()
     with pytest.raises(ValueError, match="aligned"):
         exp_fixed_grid.fixed_grid(shifted, 16)
     with pytest.raises(ValueError, match="rows"):
         exp_fixed_grid.fixed_grid(depth, exp_fixed_grid.MAX_ROWS + 1)
-    assert exp_fixed_grid.launches["fixed_grid"] == 0
+    assert _build.launches["fixed_grid"] == 0
     got = exp_fixed_grid.fixed_grid(depth, exp_fixed_grid.MAX_ROWS)
     want = exp_fixed_grid.fixed_grid_reference(depth,
                                                exp_fixed_grid.MAX_ROWS)
@@ -538,11 +539,11 @@ def test_fixed_cost_bit_equal(cuda_device, case, n_out):
         ts = exp_fixedcost.jumbled_starts(cuda_device, seed=n_out)
     depth0 = torch.rand(depth0.shape, device=cuda_device)
     poison(n_out, (1088, 1920), cuda_device)
-    exp_fixedcost.reset_launches()
+    _build.reset_launches()
     got = exp_fixedcost.fixed_cost(table, ts, depth0, n_out=n_out)
     want = exp_fixedcost.fixed_cost_reference(table, ts, depth0, n_out=n_out)
     torch.cuda.synchronize()
-    assert exp_fixedcost.launches["fixed_cost"] == 1
+    assert _build.launches["fixed_cost"] == 1
     for g, w in zip(got, want, strict=True):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
     for shape in exp_fixedcost.LAUNCH_VARIANTS.values():
@@ -564,14 +565,14 @@ def test_fixed_cost_rejects_what_the_kernel_does_not_take(cuda_device):
             t.shape)
         return out.copy_(t)
 
-    exp_fixedcost.reset_launches()
+    _build.reset_launches()
     for args, match in (((shifted(table), ts, depth0), "aligned"),
                         ((table, ts, shifted(depth0)), "aligned"),
                         ((table[:, :22].contiguous(), ts, depth0),
                          "multiple of 4")):
         with pytest.raises(ValueError, match=match):
             exp_fixedcost.fixed_cost(*args, n_out=3)
-    assert exp_fixedcost.launches["fixed_cost"] == 0
+    assert _build.launches["fixed_cost"] == 0
 
 
 @pytest.mark.parametrize("shape", [
@@ -589,10 +590,10 @@ def test_fill_bit_equal_at_odd_shapes(cuda_device, shape):
     # kernel misses stays NaN
     torch.full((grid_h * tile_h, grid_w * tile_w), float("nan"),
                device=cuda_device)
-    exp_fixedcost.reset_launches()
+    _build.reset_launches()
     got = exp_fixedcost.fill(*shape, cuda_device)
     torch.cuda.synchronize()
-    assert exp_fixedcost.launches["fill"] == 1
+    assert _build.launches["fill"] == 1
     assert torch.equal(got, exp_fixedcost.fill_reference(*shape, cuda_device))
 
 
@@ -624,12 +625,12 @@ def test_pipe_cost_bit_equal(cuda_device, level, nout, kind, tpp):
         entries = entries[:exp_pipecost.SHORT_E].contiguous()
         ts = exp_pipecost.jumbled_starts(cuda_device, seed=nout)
     poison(nout, (1088, 1920), cuda_device)
-    exp_pipecost.reset_launches()
+    _build.reset_launches()
     got = exp_pipecost.run(entries, ts, nout=nout, level=level, tpp=tpp)
     want = exp_pipecost.pipe_cost_reference(entries, ts, nout=nout,
                                             level=level)
     torch.cuda.synchronize()
-    assert exp_pipecost.launches["pipe_cost"] == 1
+    assert _build.launches["pipe_cost"] == 1
     for g, w in zip(got, want, strict=True):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
@@ -643,11 +644,11 @@ def test_pipe_cost_rejects_what_the_kernel_does_not_take(cuda_device):
     entries = entries[:1024]
     shifted = torch.empty(entries.numel() + 1, device=cuda_device)[1:].view(
         entries.shape).copy_(entries)
-    exp_pipecost.reset_launches()
+    _build.reset_launches()
     for ent in (shifted, entries[:, :22].contiguous(), entries[:63]):
         with pytest.raises(ValueError, match="aligned"):
             exp_pipecost.run(ent, ts, nout=7, level=2)
-    assert exp_pipecost.launches["pipe_cost"] == 0
+    assert _build.launches["pipe_cost"] == 0
 
 
 # ---- P3, P2, P5 (csrc/probes_visibility.cu, probes_mxu.cu, probes.cu) ----
@@ -692,7 +693,7 @@ def test_probe_visibility_variant_bit_equal(cuda_device, case):
                                            skew=kw.pop("skew", False))
     if kw.get("e2_stored"):
         table = V.refill_e2(table)
-    V.reset_launches()
+    _build.reset_launches()
     got, nres = V.run_variant(table, ts, depth0, scissor, **kw)
     grid_w, grid_h = V.grid_of(depth0.shape[1], depth0.shape[0], tile_h)
     want, want_nres = V.variant_reference(
@@ -701,7 +702,7 @@ def test_probe_visibility_variant_bit_equal(cuda_device, case):
         **{k: v for k, v in kw.items()
            if k not in ("tile_h", "chunk", "unroll")})
     torch.cuda.synchronize()
-    assert V.launches["visibility_variant"] == 1
+    assert _build.launches["visibility_variant"] == 1
     for g, w in zip(got, want, strict=True):
         assert g.dtype == w.dtype and torch.equal(
             g.view(torch.int32), w.view(torch.int32))
@@ -774,7 +775,7 @@ def test_probe_visibility_packed_at_row_edges(cuda_device, lane, exit, lag2):
     ts = torch.from_numpy(ts_np).to(cuda_device)
     depth0 = torch.ones((fb_h, fb_w), device=cuda_device)
     scissor = (0, 0, fb_w, fb_h)
-    V.reset_launches()
+    _build.reset_launches()
     got, nres = V.run_packed(packed, ts, depth0, scissor, exit=exit,
                              lag2=lag2)
     grid_w, grid_h = V.grid_of(fb_w, fb_h, 16)
@@ -783,7 +784,7 @@ def test_probe_visibility_packed_at_row_edges(cuda_device, lane, exit, lag2):
                                          tile_h=16, grid_w=grid_w,
                                          grid_h=grid_h, exit=exit, lag2=lag2)
     torch.cuda.synchronize()
-    assert V.launches["visibility_packed"] == 1
+    assert _build.launches["visibility_packed"] == 1
     for g, w in zip(got, want, strict=True):
         assert g.dtype == w.dtype and torch.equal(
             g.view(torch.int32), w.view(torch.int32))
@@ -811,11 +812,11 @@ def test_probe_mxu_equal_on_exact_inputs(cuda_device, name, precision):
     ent, ts = M.exact_inputs(cuda_device, grid=grid, seg=240,
                              split=opts["split"])
     kw = dict(grid=grid, grid_w=M.grid_dims(16)[0], chunk=128, **opts)
-    M.reset_launches()
+    _build.reset_launches()
     got = M.run_mxu(ent, ts, **kw)
     want = M.mxu_reference(ent, ts, **kw)
     torch.cuda.synchronize()
-    assert M.launches["mxu"] == 1
+    assert _build.launches["mxu"] == 1
     assert torch.equal(got, want)
 
 
@@ -852,7 +853,6 @@ def test_probe_mxu_tiles_and_chunks_on_exact_inputs(cuda_device, name,
     raises before launching (fatfullc, fatsplitfullc and fatsplit_exit
     at tile_h 32, the last two at chunk 256: 14 maps a pixel, and the
     split's 60-lane ring, pass 227 KB)."""
-    from tyleri_tpu_torch import _build
     from tyleri_tpu_torch.tools import exp_mxu as M
 
     opts = M.options(name, tile_h)
@@ -865,17 +865,17 @@ def test_probe_mxu_tiles_and_chunks_on_exact_inputs(cuda_device, name,
     stage = M._stage(opts["do_ew"], opts["do_red"])
     attr = (1 if opts["do_attr"] else 2 if opts["do_attrc"] else 0
             ) if stage == 2 else 0
-    M.reset_launches()
+    _build.reset_launches()
     if not _build.load().ty_probe_mxu_smem(mode, opts["nplanes"], chunk,
                                            tile_h, stage, attr):
         with pytest.raises(ValueError, match="shared memory"):
             M.run_mxu(ent, ts, **kw)
-        assert M.launches["mxu"] == 0
+        assert _build.launches["mxu"] == 0
         return
     got = M.run_mxu(ent, ts, **kw)
     want = M.mxu_reference(ent, ts, **kw)
     torch.cuda.synchronize()
-    assert M.launches["mxu"] == 1
+    assert _build.launches["mxu"] == 1
     assert torch.equal(got, want)
 
 

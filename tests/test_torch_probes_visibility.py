@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from tyleri_tpu_torch import _build
 from tyleri_tpu_torch.tools import exp_visibility as V
 from test_torch_probes import t, tool_module
 from torch_probe_tables import FB_H, FB_W, inputs
@@ -76,14 +77,14 @@ def test_variant_reference_matches_the_tpu_kernel(case):
 
 def test_run_variant_on_the_cpu_is_the_plain_version():
     tab, ts, depth0, grid_w, grid_h = inputs(3, 16)
-    V.reset_launches()
+    _build.reset_launches()
     got, nres = V.run_variant(t(tab), t(ts), t(depth0), SCISSOR, lex=True)
     want, want_nres = V.variant_reference(
         t(tab), t(ts), t(depth0), SCISSOR, tile_h=16, grid_w=grid_w,
         grid_h=grid_h, chunk=128, lex=True)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert torch.equal(nres, want_nres) and not any(V.launches.values())
+    assert torch.equal(nres, want_nres) and not _build.launches
 
 
 def test_pack5_matches_the_tpu_tool():

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tyleri_tpu_torch import _build
 from tyleri_tpu_torch.ops import raster_exact
 from tyleri_tpu_torch.ops.sampling import make_texel_quads
 from tyleri_tpu_torch.pipeline.state import (
@@ -121,10 +122,10 @@ def assert_equal(got, want, before):
 def test_hud_equals_the_loop(cuda_device):
     args = hud(5)
     want = passes.ui_pass(*args)
-    before = raster_exact.launches
+    before = _build.launches["raster_exact"]
     got = passes.ui_pass(*to(args, cuda_device))
     torch.cuda.synchronize()
-    assert raster_exact.launches == before + 1
+    assert _build.launches["raster_exact"] == before + 1
     drew = assert_equal(got, want, args[1])
     assert drew > 0.05, f"the HUD drew {drew:.2%} of the frame"
 
@@ -139,10 +140,10 @@ def test_hud_past_one_chunk_equals_the_loop(cuda_device, glyphs):
     T = args[3].shape[0]
     assert T == 128 + 2 * glyphs > 2 * 256
     want = passes.ui_pass(*args)
-    before = raster_exact.launches
+    before = _build.launches["raster_exact"]
     got = passes.ui_pass(*to(args, cuda_device))
     torch.cuda.synchronize()
-    assert raster_exact.launches == before + 1
+    assert _build.launches["raster_exact"] == before + 1
     drew = assert_equal(got, want, args[1])
     # the last glyph row, drawn only by triangles of the last chunk
     last = want[1][60 + 40 * (glyphs // 32 - 1):, 520:] == 0
@@ -152,10 +153,12 @@ def test_hud_past_one_chunk_equals_the_loop(cuda_device, glyphs):
 def test_ui_pass_makes_no_synchronizing_call(cuda_device):
     """The kernel path reads nothing to the host: under the sync debug
     mode's "error" around the call alone, it raises on any synchronizing
-    call.  One ``ui.kernel`` count a launch."""
+    call.  One launch, counted in ``_build.launches`` and in no tracing
+    counter."""
     args = to(hud(6), cuda_device)
     passes.ui_pass(*args)                  # builds and loads the library
     torch.cuda.synchronize()
+    before = _build.launches["raster_exact"]
     with tracing() as records:
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -163,7 +166,8 @@ def test_ui_pass_makes_no_synchronizing_call(cuda_device):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert records.counters == {None: {"ui.kernel": 1}}
+    assert _build.launches["raster_exact"] == before + 1
+    assert not records.counters
     assert not records.spans
     assert float(depth.min()) == 0.0
 
@@ -211,12 +215,12 @@ def exact_equals_the_loop(dev, seed, W, H, state, *, window=256,
     if vertex_color:
         kw.update(with_vertex_color=True, vertex_color=vcol)
     want = raster_exact.rasterize_exact(*args, **kw)
-    before = raster_exact.launches
+    before = _build.launches["raster_exact"]
     if vertex_color:
         kw["vertex_color"] = vcol.to(dev)
     got = raster_exact.rasterize_exact(*to(args, dev), **kw)
     torch.cuda.synchronize()
-    assert raster_exact.launches == before + 1
+    assert _build.launches["raster_exact"] == before + 1
     return assert_equal(got, want, color0)
 
 

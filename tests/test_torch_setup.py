@@ -32,6 +32,7 @@ from tyleri_tpu.ops import setup as jsetup
 from tyleri_tpu.ops import setup_pallas as jpallas
 from tyleri_tpu.pipeline.state import MESH_PIPELINE_STATE
 from tyleri_tpu.rendering import passes as jpasses
+from tyleri_tpu_torch import _build
 from tyleri_tpu_torch.interop import from_jax
 from tyleri_tpu_torch.ops import clip as tclip
 from tyleri_tpu_torch.ops import setup as tsetup
@@ -225,10 +226,11 @@ def test_fused_setup_reference_matches_pallas_kernel():
     corner, draw, tex, valid, mvps = rand_scene(rng, T, D, behind_frac=0.1)
     su_j, crossings_j, crossed_j = jax_fused(corner, draw, tex, valid, mvps,
                                              D)
+    _build.reset_launches()
     su_t, crossings_t, crossed_t = setup_cuda.fused_setup(
         t(corner), t(draw), t(tex), t(valid), t(mvps.reshape(D, 16)), True,
         VIEWPORT, SCISSOR, **DIMS)
-    assert setup_cuda.launches == 0   # CPU tensors take the plain version
+    assert not _build.launches   # CPU tensors take the plain version
     assert int(crossings_t) == int(crossings_j) > 0
     np.testing.assert_array_equal(crossed_t.numpy(),
                                   np.asarray(crossed_j)[:T])

@@ -104,8 +104,8 @@ def test_ui_pass_spans_hold_its_read():
     """A frame with a UI overlay records ``ui`` first in ``record``, with
     the plain loop's one synchronizing read, ``ui.read``, inside.  The
     read exists on the CPU path only: on CUDA tensors the exact rasterizer
-    is one kernel launch that reads nothing to the host (counted as
-    ``ui.kernel``; tests/test_torch_raster_exact_cuda.py)."""
+    is one kernel launch that reads nothing to the host (counted in
+    ``_build.launches``; tests/test_torch_raster_exact_cuda.py)."""
     dev = tt.RenderDeviceBuilder().device("cpu").build()
     rig = tt.scenes.config1_triangle(dev, (64, 64))
     (white,) = dev.create_textures(

@@ -32,6 +32,7 @@ from tyleri_tpu.ops import setup as jsetup
 from tyleri_tpu.ops import visibility as jvis
 from tyleri_tpu.ops.raster_pallas import rasterize_visibility_pallas
 from tyleri_tpu.pipeline.state import CompareOp, DepthFormat, DepthState
+from tyleri_tpu_torch import _build
 from tyleri_tpu_torch.interop import from_jax
 from tyleri_tpu_torch.ops import binning as tbinning
 from tyleri_tpu_torch.ops import raster_cuda
@@ -148,9 +149,10 @@ def test_reference_matches_pallas_and_xla(case):
     want_xla, _ = jvis.rasterize_visibility(
         binned, jnp.asarray(depth0), jnp.asarray(scissor), cap_per_tile=256,
         chunk=32, **kw)
+    _build.reset_launches()
     got = raster_cuda.rasterize_visibility(
         to_torch(binned), torch.from_numpy(depth0), scissor, **port(kw))
-    assert raster_cuda.launches() == 0  # CPU tensors take the plain version
+    assert not _build.launches  # CPU tensors take the plain version
     # narrow and broad entries, nothing dropped
     assert int(binned.num_broad) > 1 and int(binned.overflow) == 0
     tb = to_torch(binned)
@@ -293,9 +295,10 @@ def test_stream_reference_peel2_matches_pallas(case):
         binned, jnp.asarray(depth0), jnp.asarray(scissor), chunk=128,
         interpret=True, peel2=True, **kw)
     tb = to_torch(binned)
+    _build.reset_launches()
     got, got2 = raster_cuda.rasterize_visibility(
         tb, torch.from_numpy(depth0), scissor, peel2=True, **port(kw))
-    assert raster_cuda.launches() == 0   # CPU tensors take the plain version
+    assert not _build.launches   # CPU tensors take the plain version
     assert_layer_matches(got, want, tb, f"{case} layer 1")
     assert_layer_matches(got2, want2, tb, f"{case} layer 2")
     assert (got.owner >= 0).any()

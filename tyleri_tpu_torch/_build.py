@@ -17,10 +17,16 @@ eager PyTorch does, so each kernel is bit-equal to its plain version on the
 card.  No fast-math: divisions and square roots stay IEEE.  ``-Xptxas -v``
 makes ptxas report each kernel's registers and spills; the report is kept
 beside the library (``kernel_resources``).
+
+Every binding launches through here: ``check_args`` holds its tensors to
+what the C interface assumes of their pointers, and ``launcher`` makes the
+launch, which counts itself in ``launches`` under the kernel's name, passes
+the current stream and raises on the error code the entry point returns.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import fcntl
 import glob
@@ -30,6 +36,8 @@ import re
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -45,6 +53,8 @@ _lock = threading.Lock()
 _dir = BUILD_DIR
 compiles = 0        # nvcc builds of the library in this process
 loaded_path = None  # the library load() loaded
+# kernel launches since the last reset_launches(), by kernel name
+launches = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -298,6 +308,36 @@ def load():
         return _lib
 
 
-def check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+def reset_launches() -> None:
+    launches.clear()
+
+
+def check_args(kernel: str, device, args) -> None:
+    """Raise ValueError unless each (name, tensor, dtype, shape) of
+    ``args`` is a contiguous tensor of that dtype and shape on ``device``.
+    A shape of None takes any shape: the wrapper checks its rank and sizes
+    itself."""
+    for name, t, dtype, shape in args:
+        if (t.dtype != dtype or t.device != device or not t.is_contiguous()
+                or shape is not None and tuple(t.shape) != tuple(shape)):
+            want = "" if shape is None else f" {tuple(shape)}"
+            raise ValueError(
+                f"{kernel}: {name} must be a contiguous {dtype}{want} on "
+                f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def launcher(kernel: str, symbol: str, device, args, tensors=None):
+    """The library's ``symbol`` on ``args`` as a launch: each call counts
+    one launch of ``kernel``, passes the handle of ``device``'s current
+    stream after ``args`` and raises on a nonzero error code.  The tensors
+    whose pointers ``args`` holds live on it as ``launch.tensors``."""
+    fn = getattr(load(), symbol)
+
+    def launch():
+        launches[kernel] += 1
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
+
+    launch.tensors = tensors
+    return launch

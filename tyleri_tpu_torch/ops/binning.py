@@ -38,7 +38,7 @@ import torch
 from tyleri_tpu_torch import _build
 from tyleri_tpu_torch.ops import setup as S
 from tyleri_tpu_torch.ops.setup import TriangleSetup
-from tyleri_tpu_torch.utils.profiling import count, span
+from tyleri_tpu_torch.utils.profiling import span
 
 # per-level capacity fractions of spill_cap (the JAX package's tuning)
 _LEVEL_FRACS = (0.6, 0.2, 0.08, 0.03, 0.012)
@@ -47,9 +47,6 @@ _LEVEL_FRACS = (0.6, 0.2, 0.08, 0.03, 0.012)
 TRI_BITS = 32
 TRI_MASK = (1 << TRI_BITS) - 1
 DEAD_KEY = (1 << (TRI_BITS + 10)) - 1
-
-# emit kernel launches since the last reset (main-path accounting)
-launches = 0
 
 
 class BinnedEntries(NamedTuple):
@@ -138,11 +135,6 @@ def _segment_args(vcap: int, caps: tuple, entry_cap: int, K: int):
             starts[-1])
 
 
-def reset_launches() -> None:
-    global launches
-    launches = 0
-
-
 def emit_entries(key, opA, *, T: int, grid_w: int, ntiles: int, K: int,
                  vcap: int, caps, entry_cap: int):
     """The pre-sort entry list from the first sort's ``key`` and the
@@ -177,33 +169,24 @@ def kernel_launch(key, opA, key2, tri, placed, *, T: int, grid_w: int,
     alone)."""
     starts, covers, nseg, n = _segment_args(vcap, tuple(caps), entry_cap, K)
     dev = key.device
-    for name, t, rows in (("key", key, key.shape[0]), ("opA", opA,
-                          key.shape[0]), ("key2", key2, n), ("tri", tri, n),
-                          ("placed", placed, 2)):
-        if (t.dtype != torch.int64 or tuple(t.shape) != (rows,)
-                or not t.is_contiguous() or t.device != dev):
-            raise ValueError(
-                f"emit_entries: {name} must be a contiguous int64 ({rows},) "
-                f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if max([vcap, *caps]) > key.shape[0]:
-        raise ValueError(f"emit_entries: {key.shape[0]} key rows, segments "
-                         f"of up to {max([vcap, *caps])}")
-    lib = _build.load()
-    args = (key.data_ptr(), opA.data_ptr(), key.shape[0], starts, covers,
-            nseg, grid_w, ntiles, T - 1, key2.data_ptr(), tri.data_ptr(),
-            placed.data_ptr())
+    rows = key.shape[0]
+    _build.check_args("bin_emit", dev, (
+        ("key", key, torch.int64, (rows,)), ("opA", opA, torch.int64, (rows,)),
+        ("key2", key2, torch.int64, (n,)), ("tri", tri, torch.int64, (n,)),
+        ("placed", placed, torch.int64, (2,))))
+    if max([vcap, *caps]) > rows:
+        raise ValueError(f"bin_emit: {rows} key rows, segments of up to "
+                         f"{max([vcap, *caps])}")
+    emit = _build.launcher("bin_emit", "ty_binning_emit", dev, (
+        key.data_ptr(), opA.data_ptr(), rows, starts, covers, nseg, grid_w,
+        ntiles, T - 1, key2.data_ptr(), tri.data_ptr(), placed.data_ptr()),
+        dict(key=key, opA=opA, key2=key2, tri=tri, placed=placed))
 
     def launch():
-        global launches
-        launches += 1
-        count("bin.emit")
         placed.zero_()
-        err = lib.ty_binning_emit(*args,
-                                  torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "binning_emit")
+        emit()
 
-    # the tensors whose pointers it passes live as long as the launch
-    launch.tensors = dict(key=key, opA=opA, key2=key2, tri=tri, placed=placed)
+    launch.tensors = emit.tensors
     return launch
 
 

@@ -31,12 +31,15 @@ from tyleri_tpu_torch.ops.visibility import (
 )
 
 __all__ = ["rasterize_visibility", "rasterize_visibility_reference",
-           "rasterize_visibility_stream_reference", "launches",
-           "variant_launches", "reset_launches", "K3_PPT", "K3Launch",
-           "k3_launch"]
+           "rasterize_visibility_stream_reference", "K3_NAMES", "K3_PPT",
+           "K3Launch", "k3_launch"]
 
 # pixels a thread of every variant (csrc/visibility.cu: PPT)
 K3_PPT = 2
+# K3's variants by their kernel names in _build.launches
+K3_NAMES = {"base": "rasterize_visibility",
+            "peel2": "rasterize_visibility_peel2",
+            "counts": "rasterize_visibility_counts"}
 
 
 class K3Launch(NamedTuple):
@@ -71,20 +74,6 @@ def k3_launch(tile_w: int, tile_h: int) -> K3Launch:
     return K3Launch(tile_w, tile_h, threads, ppt)
 
 
-# kernel launches per variant since the last reset (main-path accounting)
-variant_launches = {"base": 0, "peel2": 0, "counts": 0}
-
-
-def launches() -> int:
-    """Kernel launches of every variant since the last reset."""
-    return sum(variant_launches.values())
-
-
-def reset_launches() -> None:
-    for k in variant_launches:
-        variant_launches[k] = 0
-
-
 def rasterize_visibility(binned: BinnedEntries, init_depth, scissor, *,
                          fb_w: int, fb_h: int, tile_w: int, tile_h: int,
                          grid_w: int, grid_h: int, depth_state: DepthState,
@@ -110,7 +99,7 @@ def rasterize_visibility(binned: BinnedEntries, init_depth, scissor, *,
     if dev.type != "cuda":
         raise ValueError(f"rasterize_visibility: unsupported device {dev}")
     le, d16 = depth_flags(depth_state)
-    variant = "peel2" if peel2 else "counts" if counts else "base"
+    kernel = K3_NAMES["peel2" if peel2 else "counts" if counts else "base"]
     geometry = k3_launch(tile_w, tile_h)
     if not 0 < chunk <= 256:
         raise ValueError(f"chunk {chunk} outside (0, 256]")
@@ -118,20 +107,15 @@ def rasterize_visibility(binned: BinnedEntries, init_depth, scissor, *,
     B = binned.broad_channels.shape[0]
     ntiles = grid_w * grid_h
     depth0 = init_depth.to(torch.float32).contiguous()
-    for name, t, dt, shape in (
-            ("entry_channels", binned.entry_channels, torch.float32,
-             (E, S.NUM_CHANNELS)),
-            ("tile_start", binned.tile_start, torch.int32, (ntiles + 1,)),
-            ("broad_channels", binned.broad_channels, torch.float32,
-             (B, S.NUM_CHANNELS)),
-            ("broad_tiles", binned.broad_tiles, torch.int32, (B, 4)),
-            ("num_broad", binned.num_broad, torch.int32, ()),
-            ("init_depth", depth0, torch.float32, (fb_h, fb_w))):
-        if (t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous()
-                or t.device != dev):
-            raise ValueError(
-                f"rasterize_visibility: {name} must be a contiguous {dt} "
-                f"{shape} on {dev}, got {t.dtype} {tuple(t.shape)}")
+    _build.check_args(kernel, dev, (
+        ("entry_channels", binned.entry_channels, torch.float32,
+         (E, S.NUM_CHANNELS)),
+        ("tile_start", binned.tile_start, torch.int32, (ntiles + 1,)),
+        ("broad_channels", binned.broad_channels, torch.float32,
+         (B, S.NUM_CHANNELS)),
+        ("broad_tiles", binned.broad_tiles, torch.int32, (B, 4)),
+        ("num_broad", binned.num_broad, torch.int32, ()),
+        ("init_depth", depth0, torch.float32, (fb_h, fb_w))))
     if (grid_w * tile_w < fb_w or grid_h * tile_h < fb_h
             or (grid_w - 1) * tile_w >= fb_w or (grid_h - 1) * tile_h >= fb_h):
         raise ValueError("tile grid does not cover the framebuffer exactly")
@@ -154,9 +138,7 @@ def rasterize_visibility(binned: BinnedEntries, init_depth, scissor, *,
     nvis = (torch.empty((grid_h, grid_w), dtype=torch.int32, device=dev)
             if counts else None)
     tile_order = torch.empty((ntiles,), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    variant_launches[variant] += 1
-    err = lib.ty_rasterize_visibility(
+    _build.launcher(kernel, "ty_rasterize_visibility", dev, (
         binned.tile_start.data_ptr(), binned.entry_channels.data_ptr(),
         binned.broad_channels.data_ptr(), binned.broad_tiles.data_ptr(),
         binned.num_broad.data_ptr(), B, depth0.data_ptr(),
@@ -165,10 +147,8 @@ def rasterize_visibility(binned: BinnedEntries, init_depth, scissor, *,
         E, chunk,
         int(le), int(d16), geometry.threads, geometry.ppt,
         *(t.data_ptr() for t in vis),
-        *(t.data_ptr() for t in vis2) if peel2 else (None,) * 7,
-        nvis.data_ptr() if counts else None, tile_order.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "rasterize_visibility")
+        *((t.data_ptr() for t in vis2) if peel2 else (None,) * 7),
+        nvis.data_ptr() if counts else None, tile_order.data_ptr()))()
     if peel2:
         return vis, vis2
     if counts:

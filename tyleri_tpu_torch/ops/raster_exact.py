@@ -37,10 +37,7 @@ from tyleri_tpu_torch.pipeline.state import (
     PipelineState,
     lookup,
 )
-from tyleri_tpu_torch.utils.profiling import count, span
-
-# kernel launches since the last reset (main-path accounting)
-launches = 0
+from tyleri_tpu_torch.utils.profiling import span
 
 # the kernel's codes for the pipeline state (csrc/raster_exact.cu's enums)
 _COMPARE = {op: i for i, op in enumerate(
@@ -56,11 +53,6 @@ _FACTOR = {f: i for i, f in enumerate(
 _OP = {op: i for i, op in enumerate(
     (BlendOp.ADD, BlendOp.SUBTRACT, BlendOp.REVERSE_SUBTRACT, BlendOp.MIN,
      BlendOp.MAX))}
-
-
-def reset_launches() -> None:
-    global launches
-    launches = 0
 
 
 def _vertex_color_planes(vertex_color, clip, lam):
@@ -111,7 +103,7 @@ def kernel_launch(color, depth, su, vc_planes, scissor, texels, tex_offset,
     tables = [t.to(torch.int32) for t in (tex_offset, tex_width, tex_height)]
     slots = tables[0].shape[0]
     if slots == 0:
-        raise ValueError("rasterize_exact: the texture tables are empty")
+        raise ValueError("raster_exact: the texture tables are empty")
     checks = [("channels", su.channels, torch.float32, (T, S.NUM_CHANNELS)),
               ("texels", texels, torch.float32, (texels.shape[0], 16)),
               ("color", color, torch.float32, (H, W, 4)),
@@ -120,20 +112,14 @@ def kernel_launch(color, depth, su, vc_planes, scissor, texels, tex_offset,
                zip(("tex_offset", "tex_width", "tex_height"), tables)]
     if vc is not None:
         checks.append(("vertex_color", vc, torch.float32, (T, 12)))
-    for name, t, dt, shape in checks:
-        if (t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous()
-                or t.device != dev):
-            raise ValueError(
-                f"rasterize_exact: {name} must be a contiguous {dt} {shape} "
-                f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    _build.check_args("raster_exact", dev, checks)
     blend, dstate = state.blend, state.depth
     compare = (lookup(_COMPARE, dstate.compare_op) if dstate.test_enable
                else _COMPARE[CompareOp.ALWAYS])
     d16 = lookup({DepthFormat.D16_UNORM: 1, DepthFormat.D32_SFLOAT: 0},
                  dstate.format)
     mask = sum(1 << c for c, m in enumerate(blend.write_mask) if m)
-    lib = _build.load()
-    args = (
+    return _build.launcher("raster_exact", "ty_raster_exact", dev, (
         su.channels.data_ptr(), regions.data_ptr(),
         vc.data_ptr() if vc is not None else None, T, texels.data_ptr(),
         *(t.data_ptr() for t in tables), slots,
@@ -142,21 +128,9 @@ def kernel_launch(color, depth, su, vc_planes, scissor, texels, tex_offset,
         int(blend.enable), lookup(_FACTOR, blend.src_color),
         lookup(_FACTOR, blend.dst_color), lookup(_OP, blend.color_op),
         lookup(_FACTOR, blend.src_alpha), lookup(_FACTOR, blend.dst_alpha),
-        lookup(_OP, blend.alpha_op), mask)
-
-    def launch():
-        global launches
-        launches += 1
-        count("ui.kernel")
-        err = lib.ty_raster_exact(*args,
-                                  torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "rasterize_exact")
-
-    # the tensors whose pointers it passes live as long as the launch
-    launch.tensors = dict(channels=su.channels, regions=regions, vc=vc,
-                          texels=texels, tables=tables, color=color,
-                          depth=depth)
-    return launch
+        lookup(_OP, blend.alpha_op), mask),
+        dict(channels=su.channels, regions=regions, vc=vc, texels=texels,
+             tables=tables, color=color, depth=depth))
 
 
 def rasterize_exact(color, depth, clip, uv, tex_id, tri_valid, viewport,

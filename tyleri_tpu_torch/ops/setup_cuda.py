@@ -24,14 +24,6 @@ import torch
 from tyleri_tpu_torch import _build
 from tyleri_tpu_torch.ops import setup as S
 
-# kernel launches since the last reset (main-path accounting)
-launches = 0
-
-
-def reset_launches() -> None:
-    global launches
-    launches = 0
-
 
 def _cull_code(cull_mode, front_face):
     from tyleri_tpu_torch.pipeline.state import CullMode, FrontFace, lookup
@@ -114,18 +106,13 @@ def fused_setup(corners, tri_draw, tri_tex, tri_valid, mvps, cam_valid,
     mod_n, mod_i = _draw_mod(draw_mod)
     T = corners.shape[0]
     D = mvps.shape[0]
-    for name, t, dt, shape in (
-            ("corners", corners, torch.float32, (T, 3, 5)),
-            ("tri_draw", tri_draw, torch.int32, (T,)),
-            ("tri_tex", tri_tex, torch.int32, (T,)),
-            ("tri_valid", tri_valid, torch.bool, (T,)),
-            ("mvps", mvps, torch.float32, (D, 16))):
-        if (t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous()
-                or t.device != corners.device):
-            raise ValueError(
-                f"fused_setup: {name} must be a contiguous {dt} {shape} on "
-                f"{corners.device}, got {t.dtype} {tuple(t.shape)}")
     dev = corners.device
+    _build.check_args("fused_setup", dev, (
+        ("corners", corners, torch.float32, (T, 3, 5)),
+        ("tri_draw", tri_draw, torch.int32, (T,)),
+        ("tri_tex", tri_tex, torch.int32, (T,)),
+        ("tri_valid", tri_valid, torch.bool, (T,)),
+        ("mvps", mvps, torch.float32, (D, 16))))
     channels = torch.empty((T, S.NUM_CHANNELS), dtype=torch.float32,
                            device=dev)
     valid = torch.empty((T,), dtype=torch.bool, device=dev)
@@ -139,10 +126,7 @@ def fused_setup(corners, tri_draw, tri_tex, tri_valid, mvps, cam_valid,
     if T == 0:
         return su, crossings, crossed
     cull, ccw = _cull_code(cull_mode, front_face)
-    lib = _build.load()
-    global launches
-    launches += 1
-    err = lib.ty_fused_setup(
+    _build.launcher("fused_setup", "ty_fused_setup", dev, (
         corners.data_ptr(), tri_draw.data_ptr(), tri_tex.data_ptr(),
         tri_valid.data_ptr(), mvps.data_ptr(), T, D, int(bool(cam_valid)),
         mod_n, mod_i,
@@ -150,7 +134,5 @@ def fused_setup(corners, tri_draw, tri_tex, tri_valid, mvps, cam_valid,
         tile_w.bit_length() - 1, tile_h.bit_length() - 1, grid_w, grid_h,
         cull, ccw,
         channels.data_ptr(), valid.data_ptr(), tile_lo.data_ptr(),
-        tile_hi.data_ptr(), crossed.data_ptr(), crossings.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "fused_setup")
+        tile_hi.data_ptr(), crossed.data_ptr(), crossings.data_ptr()))()
     return su, crossings, crossed

@@ -91,7 +91,6 @@ def main(argv=None) -> int:
 
     from tyleri_tpu_torch import _build, native
     from tyleri_tpu_torch.device.builders import RenderDeviceBuilder
-    from tyleri_tpu_torch.ops import raster_cuda, setup_cuda
 
     with open(args.seed, "rb") as f:
         seed = f.read()
@@ -111,8 +110,9 @@ def main(argv=None) -> int:
             "host_library": (native.library_path() if native.available()
                              else None),
             "device_s": device_s, "first_frame_s": first_frame_s,
-            "launches": dict(raster_cuda.variant_launches,
-                             fused_setup=setup_cuda.launches),
+            "launches": {
+                "fused_setup": _build.launches["fused_setup"],
+                "peel2": _build.launches["rasterize_visibility_peel2"]},
             "image_sha256": image_digest(img),
         }))
     finally:

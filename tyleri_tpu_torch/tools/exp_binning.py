@@ -37,12 +37,6 @@ from tyleri_tpu_torch.tools import _common
 CHUNK = 1024   # ids per chunk, as the TPU kernel's grid step
 WIDTHS = (24, 32)   # row widths the kernel takes (f32)
 
-launches = {"gather_rows": 0}
-
-
-def reset_launches() -> None:
-    launches["gather_rows"] = 0
-
 
 def chunk_sums(v: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
     """f32 sums of ``v`` over consecutive chunks, each taken in order from
@@ -76,24 +70,19 @@ def gather_rows(ids: torch.Tensor, table: torch.Tensor):
         return gather_rows_reference(ids, table)
     if dev.type != "cuda":
         raise ValueError(f"gather_rows: unsupported device {dev}")
-    if (ids.dtype != torch.int32 or ids.dim() != 1 or ids.device != dev
-            or not ids.is_contiguous()):
-        raise ValueError("gather_rows: ids must be a contiguous i32 [E] on "
-                         f"{dev}")
-    if (table.dtype != torch.float32 or table.dim() != 2
-            or table.shape[1] not in WIDTHS or not table.is_contiguous()
+    _build.check_args("gather_rows", dev, (
+        ("ids", ids, torch.int32, (ids.numel(),)),
+        ("table", table, torch.float32, None)))
+    if (table.dim() != 2 or table.shape[1] not in WIDTHS
             or table.data_ptr() % 16):
-        raise ValueError(f"gather_rows: table must be a contiguous, 16-byte "
-                         f"aligned f32 [T, C], C in {WIDTHS}")
+        raise ValueError(f"gather_rows: table must be 16-byte aligned f32 "
+                         f"[T, C], C in {WIDTHS}")
     E, (T, C) = ids.shape[0], table.shape
     rows = torch.empty((E, C), dtype=torch.float32, device=dev)
     sums = torch.empty((-(-E // CHUNK),), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    launches["gather_rows"] += 1
-    err = lib.ty_gather_rows(ids.data_ptr(), table.data_ptr(), T, C, E,
-                             rows.data_ptr(), sums.data_ptr(),
-                             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "gather_rows")
+    _build.launcher("gather_rows", "ty_gather_rows", dev, (
+        ids.data_ptr(), table.data_ptr(), T, C, E, rows.data_ptr(),
+        sums.data_ptr()))()
     return rows, sums
 
 

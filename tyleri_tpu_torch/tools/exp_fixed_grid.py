@@ -32,12 +32,6 @@ INT_MAPS = (1, 6)
 # the kernel's most rows a block: 32 warps of 8 rows (csrc/probes.cu)
 MAX_ROWS = 256
 
-launches = {"fixed_grid": 0}
-
-
-def reset_launches() -> None:
-    launches["fixed_grid"] = 0
-
 
 def padded_shape(rows: int) -> tuple[int, int]:
     return -(-FB_H // rows) * rows, -(-FB_W // TILE_W) * TILE_W
@@ -67,10 +61,8 @@ def fixed_grid(depth: torch.Tensor, rows: int, nouts: int = 7,
         return fixed_grid_reference(depth, rows, nouts, zmax_reduce)
     if dev.type != "cuda":
         raise ValueError(f"fixed_grid: unsupported device {dev}")
-    if (depth.dtype != torch.float32 or tuple(depth.shape) != (FB_H, FB_W)
-            or not depth.is_contiguous()):
-        raise ValueError(f"fixed_grid: depth must be a contiguous f32 "
-                         f"[{FB_H}, {FB_W}]")
+    _build.check_args("fixed_grid", dev,
+                      (("depth", depth, torch.float32, (FB_H, FB_W)),))
     if depth.data_ptr() % 16:
         raise ValueError("fixed_grid: depth must be 16-byte aligned (the "
                          "kernel reads it as float4)")
@@ -80,13 +72,9 @@ def fixed_grid(depth: torch.Tensor, rows: int, nouts: int = 7,
     maps = [torch.empty(shape, device=dev, dtype=torch.int32
                         if i in INT_MAPS else torch.float32)
             for i in range(nouts)]
-    lib = _build.load()
-    launches["fixed_grid"] += 1
-    err = lib.ty_fixed_grid(
+    _build.launcher("fixed_grid", "ty_fixed_grid", dev, (
         depth.data_ptr(), rows, nouts, int(zmax_reduce),
-        *(m.data_ptr() for m in maps), *(None,) * (7 - nouts),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "fixed_grid")
+        *(m.data_ptr() for m in maps), *(None,) * (7 - nouts)))()
     return maps
 
 

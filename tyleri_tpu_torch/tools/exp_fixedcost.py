@@ -42,13 +42,6 @@ CHUNK = 128                    # the TPU probe's chunk rows
 E_FULL = 1_179_648             # sponza's entry capacity scale
 NUM_CHANNELS = 24
 
-launches = {"fixed_cost": 0, "fill": 0}
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
 
 def grid_of(tile_w: int, tile_h: int) -> tuple[int, int]:
     return -(-FB_H // tile_h), -(-FB_W // tile_w)
@@ -87,19 +80,14 @@ def check_kernel_inputs(table, tile_start, depth0, n_out: int) -> None:
     [1080, 1920], all contiguous on one device, the table and the depth
     16-byte aligned (the kernel copies chunks of the table in bulk and
     reads the depth in 16-byte loads)."""
-    dev = table.device
     grid_h, grid_w = grid_of(TILE, TILE)
-    for name, t, dt, shape in (
-            ("table", table, torch.float32, (table.shape[0], table.shape[-1])),
-            ("tile_start", tile_start, torch.int32, (grid_h * grid_w + 1,)),
-            ("depth0", depth0, torch.float32, (FB_H, FB_W))):
-        if (t.dtype != dt or tuple(t.shape) != shape or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(f"fixed_cost: {name} must be a contiguous {dt} "
-                             f"{shape} on {dev}")
-    if table.shape[1] % 4:
-        raise ValueError(f"fixed_cost: table rows must be a multiple of 4 "
-                         f"floats, got {tuple(table.shape)}")
+    _build.check_args("fixed_cost", table.device, (
+        ("table", table, torch.float32, None),
+        ("tile_start", tile_start, torch.int32, (grid_h * grid_w + 1,)),
+        ("depth0", depth0, torch.float32, (FB_H, FB_W))))
+    if table.dim() != 2 or table.shape[1] % 4:
+        raise ValueError(f"fixed_cost: table must be [E, C], C a multiple "
+                         f"of 4, got {tuple(table.shape)}")
     for name, t in (("table", table), ("depth0", depth0)):
         if t.data_ptr() % 16:
             raise ValueError(f"fixed_cost: {name} must be 16-byte aligned")
@@ -121,14 +109,10 @@ def fixed_cost(table, tile_start, depth0, *, n_out: int
     grid_h, grid_w = grid_of(TILE, TILE)
     maps = [torch.empty((grid_h * TILE, grid_w * TILE), device=dev)
             for _ in range(n_out)]
-    lib = _build.load()
-    launches["fixed_cost"] += 1
-    err = lib.ty_fixed_cost(
+    _build.launcher("fixed_cost", "ty_fixed_cost", dev, (
         tile_start.data_ptr(), table.data_ptr(), table.shape[0],
         table.shape[1], depth0.data_ptr(), n_out,
-        *(m.data_ptr() for m in maps), *(None,) * (7 - n_out),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "fixed_cost")
+        *(m.data_ptr() for m in maps), *(None,) * (7 - n_out)))()
     return maps
 
 
@@ -144,11 +128,8 @@ def fill(grid_h, grid_w, tile_h, tile_w, device) -> torch.Tensor:
     if device.type != "cuda":
         raise ValueError(f"fill: unsupported device {device}")
     out = torch.empty((grid_h * tile_h, grid_w * tile_w), device=device)
-    lib = _build.load()
-    launches["fill"] += 1
-    err = lib.ty_fill(out.data_ptr(), grid_h, grid_w, tile_h, tile_w,
-                      torch.cuda.current_stream(device).cuda_stream)
-    _build.check(err, "fill")
+    _build.launcher("fill", "ty_fill", device, (
+        out.data_ptr(), grid_h, grid_w, tile_h, tile_w))()
     return out
 
 

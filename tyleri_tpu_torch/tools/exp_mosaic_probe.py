@@ -31,13 +31,6 @@ ROWS = 24
 FIELDS = 16
 LANES = 128
 
-launches = {"transpose_rows": 0, "field_compute": 0}
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
 
 def transpose_reference(x: torch.Tensor) -> torch.Tensor:
     return x.t().contiguous()
@@ -56,15 +49,13 @@ def _launch(name, x, rows, compute):
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     n = x.numel() // rows
-    if (x.dtype != torch.float32 or not x.is_contiguous() or n == 0
-            or x.numel() != rows * n):
-        raise ValueError(f"{name}: x must be a contiguous f32 [{rows}, N]")
+    _build.check_args(name, dev, (("x", x, torch.float32, None),))
+    if n == 0 or x.numel() != rows * n:
+        raise ValueError(f"{name}: x must hold {rows} rows of N > 0 floats, "
+                         f"got {tuple(x.shape)}")
     out = torch.empty((n, ROWS), device=dev)
-    lib = _build.load()
-    launches[name] += 1
-    err = lib.ty_transpose_rows(x.data_ptr(), n, int(compute), out.data_ptr(),
-                                torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, name)
+    _build.launcher(name, "ty_transpose_rows", dev, (
+        x.data_ptr(), n, int(compute), out.data_ptr()))()
     return out
 
 

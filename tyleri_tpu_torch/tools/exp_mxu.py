@@ -54,13 +54,6 @@ OPS_EW, OPS_RED = 14, 16
 # (entry, pixel) pairs of one batch of the plain version's products
 _PAIRS_PER_BATCH = 1 << 24
 
-launches = {"mxu": 0}
-
-
-def reset_launches() -> None:
-    launches["mxu"] = 0
-
-
 def grid_dims(tile_h: int) -> tuple[int, int]:
     return -(-FB_W // TILE_W), -(-FB_H // tile_h)
 
@@ -240,18 +233,17 @@ def run_mxu(entries, tile_start, *, grid, grid_w, chunk, precision,
     mode = 2 if split else (0 if precision == "highest" else 1)
     stage = _stage(do_ew, do_red)
     attr = (1 if do_attr else 2 if do_attrc else 0) if stage == 2 else 0
-    if (entries.dtype != torch.float32 or entries.dim() != 2
-            or entries.shape[1] < (64 if split else K)
-            or entries.shape[1] % 4 or not entries.is_contiguous()
-            or entries.data_ptr() % 16 or entries.shape[0] < chunk):
-        raise ValueError("mxu: entries must be a contiguous, 16-byte aligned "
-                         "f32 [E, C], C >= the lanes read and a multiple of "
-                         f"4, E >= {chunk}")
-    if (tile_start.dtype != torch.int32 or tile_start.device != dev
-            or not tile_start.is_contiguous()
-            or tile_start.numel() < grid + 1):
-        raise ValueError(f"mxu: tile_start must be a contiguous i32 "
-                         f"[>= {grid + 1}] on {dev}")
+    _build.check_args("mxu", dev, (
+        ("entries", entries, torch.float32, None),
+        ("tile_start", tile_start, torch.int32, None)))
+    if (entries.dim() != 2 or entries.shape[1] < (64 if split else K)
+            or entries.shape[1] % 4 or entries.data_ptr() % 16
+            or entries.shape[0] < chunk):
+        raise ValueError("mxu: entries must be 16-byte aligned f32 [E, C], "
+                         "C >= the lanes read and a multiple of 4, E >= "
+                         f"{chunk}")
+    if tile_start.numel() < grid + 1:
+        raise ValueError(f"mxu: tile_start must be i32 [>= {grid + 1}]")
     if (precision not in ("highest", "default") or nplanes not in (4, 7)
             or (mode == 2 and nplanes != 4) or (stage and nplanes < 4)
             or (attr == 1 and nplanes < 7) or chunk % 8 or tile_h not in
@@ -263,13 +255,10 @@ def run_mxu(entries, tile_start, *, grid, grid_w, chunk, precision,
         raise ValueError(f"mxu: chunk {chunk} at tile_h {tile_h} needs more "
                          "shared memory than a block has")
     out = torch.empty((grid, OUT_ROWS, TILE_W * tile_h), device=dev)
-    launches["mxu"] += 1
-    err = lib.ty_probe_mxu(
+    _build.launcher("mxu", "ty_probe_mxu", dev, (
         tile_start.data_ptr(), entries.data_ptr(), entries.shape[0],
         entries.shape[1], chunk, grid, grid_w, tile_h, mode, nplanes, stage,
-        attr, int(exit_cross), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "mxu")
+        attr, int(exit_cross), out.data_ptr()))()
     return out
 
 

@@ -47,12 +47,6 @@ NUM_CHANNELS = 24
 E_CAP = 1 << 19          # >= 8160 tiles x 64 rows: ts_one gives each a chunk
 NSTATE = 7
 
-launches = {"pipe_cost": 0}
-
-
-def reset_launches() -> None:
-    launches["pipe_cost"] = 0
-
 
 def tool_layout(frame: torch.Tensor) -> torch.Tensor:
     """A [1088, 1920] map as the tool's [68, 15, 16, 128] blocks (a view)."""
@@ -95,18 +89,14 @@ def check_kernel_inputs(entries, tile_start, *, nout: int, level: int,
     aligned (each window is one bulk copy of 64 rows), tile_start i32
     [8161] on the same device, 1 <= nout <= 7, level 0, 1 or 2, and
     ``tpp`` tile rows per CTA dividing the frame's 68."""
-    dev = entries.device
     ntiles = (FRAME_H // TILE) * (FRAME_W // TILE)
-    if (entries.dtype != torch.float32 or entries.dim() != 2
-            or entries.shape[1] % 4 or not entries.is_contiguous()
-            or entries.data_ptr() % 16 or entries.shape[0] < CHUNK):
-        raise ValueError("pipe_cost: entries must be a contiguous, 16-byte "
-                         f"aligned f32 [E, C], C a multiple of 4, E >= {CHUNK}")
-    if (tile_start.dtype != torch.int32 or tuple(tile_start.shape)
-            != (ntiles + 1,) or not tile_start.is_contiguous()
-            or tile_start.device != dev):
-        raise ValueError(f"pipe_cost: tile_start must be a contiguous i32 "
-                         f"[{ntiles + 1}] on {dev}")
+    _build.check_args("pipe_cost", entries.device, (
+        ("entries", entries, torch.float32, None),
+        ("tile_start", tile_start, torch.int32, (ntiles + 1,))))
+    if (entries.dim() != 2 or entries.shape[1] % 4 or entries.data_ptr() % 16
+            or entries.shape[0] < CHUNK):
+        raise ValueError("pipe_cost: entries must be 16-byte aligned f32 "
+                         f"[E, C], C a multiple of 4, E >= {CHUNK}")
     if not (1 <= nout <= NSTATE and level in (0, 1, 2) and tpp > 0
             and (FRAME_H // TILE) % tpp == 0):
         raise ValueError(f"pipe_cost: nout {nout}, level {level}, tpp {tpp}")
@@ -126,14 +116,10 @@ def run(entries, tile_start, *, nout: int, level: int,
         raise ValueError(f"pipe_cost: unsupported device {dev}")
     check_kernel_inputs(entries, tile_start, nout=nout, level=level, tpp=tpp)
     maps = [torch.empty((FRAME_H, FRAME_W), device=dev) for _ in range(nout)]
-    lib = _build.load()
-    launches["pipe_cost"] += 1
-    err = lib.ty_pipe_cost(
+    _build.launcher("pipe_cost", "ty_pipe_cost", dev, (
         tile_start.data_ptr(), entries.data_ptr(), entries.shape[0],
         entries.shape[1], level, nout, tpp,
-        *(m.data_ptr() for m in maps), *(None,) * (7 - nout),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "pipe_cost")
+        *(m.data_ptr() for m in maps), *(None,) * (7 - nout)))()
     return [tool_layout(m) for m in maps]
 
 

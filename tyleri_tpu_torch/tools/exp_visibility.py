@@ -72,8 +72,6 @@ MAPS = 7
 # winner stores and where the coefficients are read.
 OPS_BASE, OPS_LEX, OPS_E2_STORED = 27, 2, 2
 
-launches = {"visibility_variant": 0, "visibility_packed": 0}
-
 # the kernel's geometry (csrc/probes_visibility.cu: MIN_PPT, MAX_THREADS and
 # the PPTs of its instances)
 P3_MIN_PPT = 2
@@ -108,11 +106,6 @@ def p3_launch(tile_h: int) -> P3Launch:
             f"of one column, so tile_h must be a positive multiple of it "
             f"and {ppt} one of the compiled {P3_PPTS}")
     return P3Launch(tile_h, TILE_W * tile_h // ppt, ppt)
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
 
 
 def grid_of(fb_w: int, fb_h: int, tile_h: int) -> tuple[int, int]:
@@ -333,14 +326,10 @@ def _launch(name, table, cap, span, tile_start, depth0, scissor, *, tile_h,
     grid_w, grid_h = grid_of(fb_w, fb_h, tile_h)
     ntiles = grid_w * grid_h
     width = PACK_LANES if packed else S.NUM_CHANNELS
-    for what, t, dt, shape in (
-            ("table", table, torch.float32, (table.shape[0], width)),
-            ("tile_start", tile_start, torch.int32, (ntiles + 1,)),
-            ("depth0", depth0, torch.float32, (fb_h, fb_w))):
-        if (t.dtype != dt or tuple(t.shape) != shape or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: {what} must be a contiguous {dt} "
-                             f"{shape} on {dev}")
+    _build.check_args(name, dev, (
+        ("table", table, torch.float32, (table.shape[0], width)),
+        ("tile_start", tile_start, torch.int32, (ntiles + 1,)),
+        ("depth0", depth0, torch.float32, (fb_h, fb_w))))
     if table.data_ptr() % 16 or cap < span:
         raise ValueError(f"{name}: the table must be 16-byte aligned and "
                          f"hold at least {span} entries")
@@ -350,16 +339,13 @@ def _launch(name, table, cap, span, tile_start, depth0, scissor, *, tile_h,
         torch.int32, *(torch.float32,) * 5, torch.int32)]
     nres = torch.empty((ntiles,), dtype=torch.int32, device=dev)
     tile_order = torch.empty((ntiles,), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    launches[name] += 1
-    err = lib.ty_probe_visibility(
+    _build.launcher(name, "ty_probe_visibility", dev, (
         tile_start.data_ptr(), table.data_ptr(), cap, span, depth0.data_ptr(),
         fb_w, fb_h, grid_w, grid_h, *S.scissor_ints(scissor), tile_h,
         geometry.threads, geometry.ppt, unroll, int(lex), exit_mode,
         int(strip), int(hoist), int(e2_stored), int(packed),
-        *(m.data_ptr() for m in maps), nres.data_ptr(), tile_order.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, name)
+        *(m.data_ptr() for m in maps), nres.data_ptr(),
+        tile_order.data_ptr()))()
     return maps, nres
 
 
